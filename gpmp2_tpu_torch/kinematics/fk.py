@@ -1,0 +1,111 @@
+"""Forward kinematics of revolute DH arms (port of gpmp2_tpu/kinematics/fk.py).
+
+DH convention (Arm.cpp:22-27, Spong eq. 3.10):
+  H_j(theta) = Rz(theta_j + bias_j) * Tz(d_j) * Tx(a_j) * Rx(alpha_j)
+  link_pose[j] = base * H_0 * ... * H_j
+
+Only `ArmFK` is ported so far; the point robot and the mobile families come
+with later slices. Configurations carry any leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..geometry import se3
+from ..geometry.se3 import Pose3
+from ..geometry.statespace import StateSpace, VectorSpace
+
+__all__ = ["ArmFK", "link_poses", "state_space_of", "dof_of", "num_links_of"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArmFK:
+    """DH-parameter revolute manipulator (reference Arm.h:27-146)."""
+
+    a: torch.Tensor  # (dof,)
+    alpha: torch.Tensor  # (dof,)
+    d: torch.Tensor  # (dof,)
+    theta_bias: torch.Tensor  # (dof,)
+    base_rot: torch.Tensor  # (3, 3)
+    base_trans: torch.Tensor  # (3,)
+
+    @staticmethod
+    def create(a, alpha, d, theta_bias=None, base_pose: Optional[Pose3] = None,
+               dtype=torch.float32, device=None) -> "ArmFK":
+        f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+        a = f(a)
+        theta_bias = torch.zeros_like(a) if theta_bias is None else f(theta_bias)
+        if base_pose is None:
+            base_pose = se3.identity(dtype, device)
+        return ArmFK(a, f(alpha), f(d), theta_bias, f(base_pose.rot),
+                     f(base_pose.trans))
+
+    @property
+    def dof(self) -> int:
+        return self.a.shape[-1]
+
+    @property
+    def base_pose(self) -> Pose3:
+        return Pose3(self.base_rot, self.base_trans)
+
+    def to(self, dtype=None, device=None) -> "ArmFK":
+        return ArmFK(*(t.to(dtype=dtype, device=device)
+                       for t in dataclasses.astuple(self)))
+
+
+def _rot_z(theta):
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, -s, z], -1),
+                        torch.stack([s, c, z], -1),
+                        torch.stack([z, z, o], -1)], -2)
+
+
+def _rot_x(theta):
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([o, z, z], -1),
+                        torch.stack([z, c, -s], -1),
+                        torch.stack([z, s, c], -1)], -2)
+
+
+def _dh_fixed_pose(fk: ArmFK, j: int) -> Pose3:
+    """Theta-independent part of joint j's DH transform:
+    Tz(d_j) * Tx(a_j) * Rx(alpha_j) (Arm.cpp:22-27)."""
+    trans = torch.stack([fk.a[j], torch.zeros_like(fk.a[j]), fk.d[j]])
+    return Pose3(_rot_x(fk.alpha[j]), trans)
+
+
+def link_poses(fk: ArmFK, q) -> Pose3:
+    """World link poses for configurations q (..., dof):
+    rot (..., dof, 3, 3), trans (..., dof, 3)."""
+    if not isinstance(fk, ArmFK):
+        raise NotImplementedError(f"FK family {type(fk).__name__} is a later slice")
+    rots, transs = [], []
+    cur = fk.base_pose
+    for j in range(fk.dof):
+        rz = _rot_z(q[..., j] + fk.theta_bias[j])
+        m = _dh_fixed_pose(fk, j)
+        hj = Pose3(rz @ m.rot, (rz @ m.trans[..., None])[..., 0])
+        cur = se3.compose(cur, hj)
+        rots.append(cur.rot)
+        transs.append(cur.trans)
+    return Pose3(torch.stack(rots, dim=-3), torch.stack(transs, dim=-2))
+
+
+def dof_of(fk) -> int:
+    if isinstance(fk, ArmFK):
+        return fk.dof
+    raise NotImplementedError(f"FK family {type(fk).__name__} is a later slice")
+
+
+def num_links_of(fk) -> int:
+    return dof_of(fk)
+
+
+def state_space_of(fk) -> StateSpace:
+    return VectorSpace(dof_of(fk))

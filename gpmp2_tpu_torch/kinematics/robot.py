@@ -1,0 +1,130 @@
+"""Sphere-based collision robot model (port of gpmp2_tpu/kinematics/robot.py).
+
+An FK model plus body spheres (link id, radius, centre in the link frame),
+as in RobotModel.h. Only the revolute-arm branch is ported so far.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..geometry import se3
+from ..geometry.se3 import Pose3
+from ..geometry.statespace import StateSpace
+from . import fk as fk_mod
+
+__all__ = ["RobotModel", "make_robot_model", "check_sphere_table",
+           "sphere_centers_world", "sphere_centers_and_jac"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RobotModel:
+    """FK + body spheres."""
+
+    fk: fk_mod.ArmFK
+    sphere_link_ids: torch.Tensor  # (S,) int64
+    sphere_radii: torch.Tensor  # (S,)
+    sphere_centers: torch.Tensor  # (S, 3) in link frames
+
+    @property
+    def num_spheres(self) -> int:
+        return self.sphere_radii.shape[-1]
+
+    @property
+    def dof(self) -> int:
+        return fk_mod.dof_of(self.fk)
+
+    @property
+    def space(self) -> StateSpace:
+        return fk_mod.state_space_of(self.fk)
+
+    def to(self, dtype=None, device=None) -> "RobotModel":
+        """Cast the float tables to `dtype` and move everything to `device`."""
+        return RobotModel(
+            self.fk.to(dtype=dtype, device=device),
+            self.sphere_link_ids.to(device=device),
+            self.sphere_radii.to(dtype=dtype, device=device),
+            self.sphere_centers.to(dtype=dtype, device=device),
+        )
+
+
+def check_sphere_table(fk, ids: np.ndarray, radii: np.ndarray, who: str):
+    """Raise unless every link id is in [0, n_links) and every radius is
+    >= 0. The FK kernel indexes its frame array by link id unchecked."""
+    n_links = fk_mod.num_links_of(fk)
+    if ids.min() < 0 or ids.max() >= n_links:
+        raise ValueError(
+            f"{who}: sphere link ids must be in [0, {n_links}) "
+            f"for this FK family, got range [{ids.min()}, {ids.max()}]"
+        )
+    if (radii < 0).any():
+        raise ValueError(
+            f"{who}: sphere radii must be >= 0, got {radii[radii < 0].tolist()}"
+        )
+
+
+def make_robot_model(fk, spheres: Sequence[Tuple[int, float, Tuple[float, float, float]]],
+                     dtype=torch.float32, device=None) -> RobotModel:
+    """Build a RobotModel from (link_id, radius, center_xyz) tuples
+    (RobotModel.h:20-31), validating the table where it enters."""
+    if len(spheres) == 0:
+        raise ValueError("make_robot_model: sphere table is empty")
+    for i, s in enumerate(spheres):
+        if len(s) != 3 or len(tuple(s[2])) != 3:
+            raise ValueError(
+                f"make_robot_model: sphere {i} must be (link_id, radius, "
+                f"(x, y, z)), got {s!r}"
+            )
+    ids = np.asarray([s[0] for s in spheres], np.int64)
+    radii = np.asarray([float(s[1]) for s in spheres])
+    check_sphere_table(fk, ids, radii, "make_robot_model")
+    centers = np.asarray([tuple(s[2]) for s in spheres], np.float64)
+    return RobotModel(
+        fk,
+        torch.as_tensor(ids, device=device),
+        torch.as_tensor(radii, dtype=dtype, device=device),
+        torch.as_tensor(centers, dtype=dtype, device=device),
+    )
+
+
+def sphere_centers_world(model: RobotModel, q):
+    """World positions of all body spheres: q (..., d) -> (..., S, 3)
+    (RobotModel::sphereCenters, RobotModel-inl.h:12-40)."""
+    poses = fk_mod.link_poses(model.fk, q)
+    sphere_frames = Pose3(poses.rot[..., model.sphere_link_ids, :, :],
+                          poses.trans[..., model.sphere_link_ids, :])
+    return se3.transform_from(sphere_frames, model.sphere_centers)
+
+
+def sphere_centers_and_jac(model: RobotModel, q):
+    """Sphere centres (..., S, 3) and the analytic position Jacobian
+    (..., S, 3, d): the geometric Jacobian dp/dtheta_j = z_j x (p - o_j)
+    for j <= link(s) (Arm.cpp:85-115 + RobotModel-inl.h:28-39)."""
+    fk = model.fk
+    if not isinstance(fk, fk_mod.ArmFK):
+        raise NotImplementedError(f"FK family {type(fk).__name__} is a later slice")
+    d = model.dof
+    poses = fk_mod.link_poses(fk, q)
+    sphere_frames = Pose3(poses.rot[..., model.sphere_link_ids, :, :],
+                          poses.trans[..., model.sphere_link_ids, :])
+    centers = se3.transform_from(sphere_frames, model.sphere_centers)  # (..., S, 3)
+
+    # joint j rotates about the z axis of the frame BEFORE it: base for
+    # j = 0, link frame j-1 otherwise
+    lead = q.shape[:-1]
+    base = fk.base_pose
+    frame_rots = torch.cat(
+        [base.rot.expand(lead + (1, 3, 3)), poses.rot[..., :-1, :, :]], dim=-3)
+    frame_trans = torch.cat(
+        [base.trans.expand(lead + (1, 3)), poses.trans[..., :-1, :]], dim=-2)
+    z_axes = frame_rots[..., :, 2]  # (..., d, 3)
+    rel = centers[..., :, None, :] - frame_trans[..., None, :, :]  # (..., S, d, 3)
+    crosses = torch.linalg.cross(z_axes[..., None, :, :].expand_as(rel), rel)
+    jmask = (torch.arange(d, device=q.device)[None, :]
+             <= model.sphere_link_ids[:, None])  # (S, d)
+    J = torch.where(jmask[..., None], crosses, torch.zeros_like(crosses))
+    return centers, J.transpose(-1, -2)  # (..., S, 3, d)

@@ -1,0 +1,31 @@
+"""Obstacle hinge residuals (port of gpmp2_tpu/obstacle/factors.py).
+
+hinge: err = eps_total - d(x) when d(x) <= eps_total (equality included,
+ObstacleCost.h:41-49), else 0; an out-of-range SDF query gives cost 0.
+Per body sphere, eps_total = sphere_radius + eps (ObstacleSDFFactor-inl.h).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kinematics.robot import RobotModel, sphere_centers_world
+from .sdf import SignedDistanceField, sdf_lookup
+
+__all__ = ["hinge_loss", "obstacle_factor_error"]
+
+
+def hinge_loss(dist, eps_total, in_range):
+    """max(0, eps - d) with out-of-range clamped to zero cost."""
+    zero = torch.zeros((), dtype=dist.dtype, device=dist.device)
+    err = torch.where(dist <= eps_total, eps_total - dist, zero)
+    return torch.where(in_range, err, zero)
+
+
+def obstacle_factor_error(model: RobotModel, sdf: SignedDistanceField, q, eps):
+    """3D obstacle factor residual: q (..., d) -> (..., S)
+    (ObstacleSDFFactor::evaluateError, ObstacleSDFFactor-inl.h:17-60)."""
+    centers = sphere_centers_world(model, q)
+    eps_total = model.sphere_radii + eps
+    dist, _, ok = sdf_lookup(sdf, centers)
+    return hinge_loss(dist, eps_total, ok)

@@ -1,0 +1,240 @@
+"""Trajectory optimization problem: the batched factor program.
+
+Port of gpmp2_tpu/planner/problem.py for vector-space (arm) problems. The
+graph recipe of BatchTrajOptimizer-inl.h:19-84 — start/goal priors, an
+obstacle factor per support state, obs_check_inter GP-interpolated
+obstacle factors per interval, and a GP prior per interval — evaluated for
+a whole batch of problems at once and accumulated directly into
+block-tridiagonal normal equations (H_diag, H_off, b).
+
+State layout: n = total_step + 1 support states; z_i = [pose_i, vel_i]
+(m = 2 dof). A batch of B problems shares the robot, the SDF and every
+weight; the start and goal states carry the leading batch dimension.
+
+The obstacle linearize runs every collision state (support and
+interpolated, B * (n + (n-1) * inter) configurations) through one pass of
+kernel K2 (sphere centres and Jacobians), one SDF gather, and -g . J: the
+branch the JAX package takes when its FK kernel is on
+(gpmp2_tpu/planner/problem.py:213-229), the same math as its default
+triple product. Joint/velocity limits, vehicle dynamics, the workspace
+goal, self-collision, workspace priors and replanning slots are later
+slices; `make_problem` refuses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..gp.gputils import calc_Q_inv
+from ..gp.interpolator import InterpCoeffs, interp_coeffs
+from ..gp.prior import gp_prior_error, gp_prior_jacobians_linear
+from ..geometry.statespace import StateSpace
+from ..kinematics.robot import RobotModel, sphere_centers_world
+from ..obstacle.factors import hinge_loss
+from ..obstacle.sdf import SignedDistanceField, sdf_lookup_components
+from ..ops.fk_arm import arm_fk_spheres_batched
+from ..solver.linearize import (jtwj_diag, jtwj_full, jtwr_diag, jtwr_full,
+                                quad_err_diag, quad_err_full)
+
+__all__ = ["Trajectory", "TrajProblem", "traj_error", "traj_linearize",
+           "collision_cost"]
+
+
+class Trajectory(NamedTuple):
+    """Support states of a batch: pose (B, n, d), vel (B, n, d)."""
+
+    pose: torch.Tensor
+    vel: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajProblem:
+    """A batch of planning problems that share robot, world and weights."""
+
+    robot: RobotModel
+    sdf: SignedDistanceField
+    dt: torch.Tensor  # () delta_t = total_time / total_step
+    Qc: torch.Tensor  # (d, d) GP power-spectral-density covariance
+    start_pose: torch.Tensor  # (B, d)
+    start_vel: torch.Tensor  # (B, d)
+    end_pose: torch.Tensor  # (B, d)
+    end_vel: torch.Tensor  # (B, d)
+    pose_prior_w: torch.Tensor  # (d,) precision diag (start prior)
+    vel_prior_w: torch.Tensor  # (d,)
+    goal_pose_w: torch.Tensor  # (d,) precision diag (goal prior)
+    goal_vel_w: torch.Tensor  # (d,)
+    obs_w: torch.Tensor  # () precision 1/cost_sigma^2
+    eps: torch.Tensor  # () obstacle safety margin
+    taus: torch.Tensor  # (inter,) interpolation offsets within an interval
+    N: int = 10  # total_step: number of intervals
+
+    @property
+    def space(self) -> StateSpace:
+        return self.robot.space
+
+    @functools.cached_property
+    def gp_precision(self) -> torch.Tensor:
+        """Q(dt)^-1, the GP prior's (2d, 2d) precision."""
+        return calc_Q_inv(self.Qc, self.dt)
+
+    @functools.cached_property
+    def interp(self) -> InterpCoeffs:
+        """Lambda/Psi for every tau: (inter, 2d, 2d) each."""
+        return interp_coeffs(self.Qc, self.dt, self.taus)
+
+
+def _interp_confs(prob: TrajProblem, pose, vel):
+    """GP-interpolated configurations (B, n-1, inter, d): conf(tau) =
+    Lambda[:d] [x1; v1] + Psi[:d] [x2; v2]."""
+    d = prob.space.dim
+    s1 = torch.cat([pose[:, :-1], vel[:, :-1]], dim=-1)  # (B, n-1, 2d)
+    s2 = torch.cat([pose[:, 1:], vel[:, 1:]], dim=-1)
+    lam_p, psi_p = prob.interp.lam[:, :d, :], prob.interp.psi[:, :d, :]
+    return (torch.einsum("tde,bie->bitd", lam_p, s1)
+            + torch.einsum("tde,bie->bitd", psi_p, s2))
+
+
+def _collision_confs(prob: TrajProblem, pose, vel):
+    """Support then interpolated configurations: (B, n + (n-1) inter, d)."""
+    B, n, d = pose.shape
+    if prob.taus.shape[0] == 0:
+        return pose
+    confs = _interp_confs(prob, pose, vel)
+    return torch.cat([pose, confs.reshape(B, -1, d)], dim=1)
+
+
+def _obs_res_and_jac_batched(prob: TrajProblem, confs):
+    """Hinge residuals (..., S) and Jacobians (..., S, d) for configurations
+    (..., d): kernel K2's centres and J, one SDF gather, then -g . J on
+    active spheres; inactive and out-of-range rows are zero
+    (ObstacleSDFFactor-inl.h:40-57, ObstacleCost.h:31-49)."""
+    lead, d = confs.shape[:-1], confs.shape[-1]
+    centers, Jc = arm_fk_spheres_batched(prob.robot, confs.reshape(-1, d))
+    eps_total = prob.robot.sphere_radii + prob.eps  # (S,)
+    dist, gx, gy, gz, ok = sdf_lookup_components(
+        prob.sdf, centers[..., 0], centers[..., 1], centers[..., 2])
+    active = ok & (dist <= eps_total)
+    zero = torch.zeros((), dtype=dist.dtype, device=dist.device)
+    r = torch.where(active, eps_total - dist, zero)
+    dot = (gx[..., None] * Jc[..., 0, :] + gy[..., None] * Jc[..., 1, :]
+           + gz[..., None] * Jc[..., 2, :])  # (N, S, d)
+    J = torch.where(active[..., None], -dot, zero)
+    S = r.shape[-1]
+    return r.reshape(lead + (S,)), J.reshape(lead + (S, d))
+
+
+def _obs_err_batched(prob: TrajProblem, confs):
+    """Hinge residuals (..., S) for configurations (..., d), without
+    Jacobians: the error-only twin of `_obs_res_and_jac_batched`."""
+    centers = sphere_centers_world(prob.robot, confs)
+    eps_total = prob.robot.sphere_radii + prob.eps
+    dist, _, _, _, ok = sdf_lookup_components(
+        prob.sdf, centers[..., 0], centers[..., 1], centers[..., 2])
+    return hinge_loss(dist, eps_total, ok)
+
+
+def _boundary_residuals(prob: TrajProblem, pose, vel):
+    """(state index, pose residual, pose weight, vel residual, vel weight)
+    of the start and goal priors; local(mean, x) = x - mean."""
+    space = prob.space
+    return (
+        (0, space.local(prob.start_pose, pose[:, 0]), prob.pose_prior_w,
+         vel[:, 0] - prob.start_vel, prob.vel_prior_w),
+        (prob.N, space.local(prob.end_pose, pose[:, prob.N]), prob.goal_pose_w,
+         vel[:, prob.N] - prob.end_vel, prob.goal_vel_w),
+    )
+
+
+def _gp_residual(prob: TrajProblem, pose, vel):
+    return gp_prior_error(prob.space, pose[:, :-1], vel[:, :-1], pose[:, 1:],
+                          vel[:, 1:], prob.dt)  # (B, n-1, 2d)
+
+
+def traj_error(prob: TrajProblem, traj: Trajectory):
+    """Total graph error per problem (B,): 0.5 * sum of whitened squared
+    residuals, matching gtsam::NonlinearFactorGraph::error."""
+    pose, vel = traj.pose, traj.vel
+    err = torch.zeros(pose.shape[0], dtype=pose.dtype, device=pose.device)
+    for _, rp, wp, rv, wv in _boundary_residuals(prob, pose, vel):
+        err = err + quad_err_diag(wp, rp) + quad_err_diag(wv, rv)
+    err = err + quad_err_full(prob.gp_precision, _gp_residual(prob, pose, vel))
+    confs = _collision_confs(prob, pose, vel)
+    return err + quad_err_diag(prob.obs_w, _obs_err_batched(prob, confs))
+
+
+def traj_linearize(prob: TrajProblem, traj: Trajectory):
+    """Gauss-Newton normal equations of a batch: H_diag (B, n, m, m),
+    H_off (B, n-1, m, m), b (B, n, m) and error (B,), with H = J^T W J,
+    b = -J^T W r, error = 0.5 r^T W r."""
+    pose, vel = traj.pose, traj.vel
+    B, n, d = pose.shape
+    m = 2 * d
+    kw = dict(dtype=pose.dtype, device=pose.device)
+    H_diag = torch.zeros((B, n, m, m), **kw)
+    H_off = torch.zeros((B, n - 1, m, m), **kw)
+    b = torch.zeros((B, n, m), **kw)
+    err = torch.zeros((B,), **kw)
+
+    # ---- boundary priors: identity Jacobians on a vector space ----------
+    for idx, rp, wp, rv, wv in _boundary_residuals(prob, pose, vel):
+        err = err + quad_err_diag(wp, rp) + quad_err_diag(wv, rv)
+        H_diag[:, idx, :d, :d] += torch.diag(wp)
+        H_diag[:, idx, d:, d:] += torch.diag(wv)
+        b[:, idx, :d] -= wp * rp
+        b[:, idx, d:] -= wv * rv
+
+    # ---- GP prior per interval (constant Jacobians) ---------------------
+    W_gp = prob.gp_precision
+    gp_r = _gp_residual(prob, pose, vel)
+    H1, H2 = gp_prior_jacobians_linear(d, prob.dt, **kw)
+    err = err + quad_err_full(W_gp, gp_r)
+    H_diag[:, :-1] += jtwj_full(H1, W_gp, H1)
+    H_diag[:, 1:] += jtwj_full(H2, W_gp, H2)
+    H_off += jtwj_full(H1, W_gp, H2)
+    b[:, :-1] -= jtwr_full(H1, W_gp, gp_r)
+    b[:, 1:] -= jtwr_full(H2, W_gp, gp_r)
+
+    # ---- obstacle factors: support + interpolated states, one K2 pass ---
+    T = prob.taus.shape[0]
+    r_all, J_all = _obs_res_and_jac_batched(prob, _collision_confs(prob, pose, vel))
+    S = r_all.shape[-1]
+    W = prob.obs_w
+    obs_r, obs_J = r_all[:, :n], J_all[:, :n]
+    err = err + quad_err_diag(W, obs_r)
+    H_diag[:, :, :d, :d] += jtwj_diag(obs_J, W, obs_J)
+    b[:, :, :d] -= jtwr_diag(obs_J, W, obs_r)
+
+    if T > 0:
+        # Factored Gram: contract the sphere axis in configuration space
+        # first, then push through the constant interpolation coefficients
+        # (reassociation of J_z = J_conf @ [Lambda | Psi][:d]; the widened
+        # (B, n-1, T, S, 2m) Jacobian is never built)
+        rs = r_all[:, n:].reshape(B, n - 1, T, S)
+        Jconf = J_all[:, n:].reshape(B, n - 1, T, S, d)
+        coeff = torch.cat([prob.interp.lam[:, :d, :], prob.interp.psi[:, :d, :]],
+                          dim=-1)  # (T, d, 2m)
+        G = torch.einsum("bitsd,bitsf->bitdf", Jconf, Jconf)
+        g_c = torch.einsum("bitsd,bits->bitd", Jconf, rs)
+        GC = torch.einsum("bitdf,tfF->bitdF", G, coeff)
+        Hfull = W * torch.einsum("tdE,bitdF->biEF", coeff, GC)  # (B, n-1, 2m, 2m)
+        gfull = W * torch.einsum("tdE,bitd->biE", coeff, g_c)  # (B, n-1, 2m)
+        err = err + quad_err_diag(W, rs)
+        H_diag[:, :-1] += Hfull[..., :m, :m]
+        H_diag[:, 1:] += Hfull[..., m:, m:]
+        H_off += Hfull[..., :m, m:]
+        b[:, :-1] -= gfull[..., :m]
+        b[:, 1:] -= gfull[..., m:]
+
+    return H_diag, H_off, b, err
+
+
+def collision_cost(prob: TrajProblem, poses):
+    """Sum of raw (unwhitened, eps = 0) obstacle errors over the given poses
+    (B, n, d) -> (B,): the reference's trajectory-quality metric
+    (BatchTrajOptimizer-inl.h:87-100)."""
+    prob0 = dataclasses.replace(prob, eps=torch.zeros_like(prob.eps))
+    return _obs_err_batched(prob0, poses).reshape(poses.shape[0], -1).sum(-1)
