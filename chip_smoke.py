@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,20 +8,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the device, and nvidia-smi's name and power limit;
 2. build the CUDA kernels from gpmp2_tpu_torch/csrc (timed);
 3. kernel K1 (block-tridiagonal solve) against its plain PyTorch version,
-   which runs in float64 on the float32-rounded inputs;
+   which runs in float64 on the float32-rounded inputs; torch.linalg.solve
+   on the same damped systems assembled dense is timed beside it;
 4. kernel K2 (arm FK + sphere Jacobians) against its plain version;
-5. the main path of bench.py through the port's entry points: the WAM
-   7-DOF arm, the 300^3 WAMDeskDataset SDF on the device, B = 2048
+5. kernel K3 (SDF lookup) against its plain version: the WAM main-path
+   queries on the 300^3 field (packed and raw, float32 and float64), the
+   OneObstacle 300^2 planar field, 8192 per-problem 64^2 worlds, and
+   points on the top faces, outside the grid and NaN;
+6. the main path of bench.py through the port's entry points: the WAM
+   7-DOF arm, the 300^3 WAMDeskDataset SDF packed on the device, B = 2048
    rejection-sampled collision-free endpoints (numpy seed 0), LM with
    max_iter 50 and rel_thresh 1e-2 in float32, best of 3 after a warm-up;
-   both kernels' launch counts must grow during the solve;
-6. agreement with a reference on a small input: four of those problems in
-   float64 on the card (kernels) and on the CPU (plain versions).
+   K1, K2 and K3 must each launch during the solve;
+7. agreement with a reference on a small input: four of those problems in
+   float64 on the card (kernels, raw field) and on the CPU (plain versions);
+8. the bench_suite.py paths through the port's entry points, at that
+   script's batch sizes and draws (numpy seeds 0 and 1, drawn in its
+   order, MobileBaseSE2's draws included): PointRobot2D (B = 16384),
+   Arm3Limits2D (B = 8192), WAM7_3D (B = 2048) and MultiWorld2D
+   (B = 8192), LM in float32, best of 3 after a warm-up, plus the oracle's
+   512-problem sets solved with the float64 rescue on. Each config's
+   q512 converged fraction must reach the oracle's, and its q512
+   collision-free fraction must lie within 0.02 of the oracle's
+   (BASELINE_MEASURED_SUITE.json); K1 and K3 must launch in every config,
+   K2 in the arm configs.
 
-It prints one informational JSON line of main-path metrics, the kernels'
-JSON line, and last `{"ok": true, "device": {...}}`. Without a CUDA
-device, or without the repository beside it, it exits non-zero before
-printing any result.
+It prints one informational JSON line of main-path metrics, one per suite
+config, the kernels' JSON line, and last `{"ok": true, "device": {...}}`.
+Without a CUDA device, or without the repository beside it, it exits
+non-zero before printing any result.
 """
 
 import json
@@ -36,6 +51,13 @@ B_MAIN = 2048
 REPEATS = 3
 BASE_START = np.array([-0.8, -1.70, 1.64, 1.29, 1.1, -0.106, 2.2])
 BASE_GOAL = np.array([-0.0, 0.94, 0.0, 1.6, 0.0, -0.919, 1.55])
+# published peaks of one H100 SXM (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# bench_suite.py's batch sizes: the oracle's problem sets and the
+# throughput batches (SUITE_B_* defaults there)
+SUITE_BATCH = {"q512": 512, "PointRobot2D": 16384, "MobileBaseSE2": 4096,
+               "Arm3Limits2D": 8192, "WAM7_3D": 2048, "MultiWorld2D": 8192}
 
 
 def log(*args):
@@ -56,6 +78,14 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, flops, flops_per_s=F32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def random_system(B, n, m, seed, damped=True):
@@ -80,6 +110,8 @@ def check_btsolve(dev):
         ("lambda0", torch.float32, B_MAIN, 11, 14, False, True, 1e-4),
         ("noscale", torch.float32, 100, 7, 4, True, False, 1e-4),
         ("f64", torch.float64, 64, 11, 14, True, True, 1e-10),
+        ("f64_m4", torch.float64, 256, 11, 4, True, True, 1e-10),
+        ("f64_m6", torch.float64, 256, 11, 6, True, True, 1e-10),
     ]
     main_err = None
     for name, dtype, B, n, m, damped, scaling, tol in cases:
@@ -97,12 +129,32 @@ def check_btsolve(dev):
             raise AssertionError(f"K1 {name}: max|dx| {err} > {tol} * {scale}")
         if name == "main":
             main_err = err
+    B, n, m = B_MAIN, 11, 14
     D, U, b, lam = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                    for a in random_system(B_MAIN, 11, 14, seed=1))
+                    for a in random_system(B, n, m, seed=1))
     ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 50)
     plain_ms = cuda_ms(lambda: block_tridiag_solve_torch(D, U, b, True, lam), 10)
-    log(f"K1 time at B={B_MAIN} n=11 m=14 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms}
+    # the same damped systems, dense (B, n m, n m), for one library call
+    H = torch.zeros((B, n, m, n, m), dtype=torch.float32, device=dev)
+    idx = torch.arange(n, device=dev)
+    H[:, idx, :, idx, :] = D.transpose(0, 1)
+    H[:, idx[:-1], :, idx[1:], :] = U.transpose(0, 1)
+    H[:, idx[1:], :, idx[:-1], :] = U.transpose(0, 1).mT
+    H = H.reshape(B, n * m, n * m) + lam[:, None, None] * torch.eye(n * m, device=dev)
+    rhs = b.reshape(B, n * m, 1)
+    library_ms = cuda_ms(lambda: torch.linalg.solve(H, rhs), 10)
+    x_lib = torch.linalg.solve(H, rhs).reshape(B, n, m)
+    lib_err = float((x_lib - block_tridiag_solve_cuda(D, U, b, True, lam)).abs().max())
+    # inputs D, U, b, lam read once and x written once; the flop count is
+    # that of the block recurrence (per block: Cholesky m^3/3, the [U | z]
+    # solve and the U^T X carry 4 m^2 (m + 1), back substitution 2 m^2)
+    nbytes = 4 * (D.numel() + U.numel() + b.numel() + lam.numel() + b.numel())
+    bound_ms, bound_by = bound(nbytes, B * n * (m**3 / 3 + 4 * m * m * (m + 1) + 2 * m * m))
+    log(f"K1 time at B={B} n={n} m={m} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.linalg.solve dense {library_ms:.4f} ms (max|dx| vs K1 {lib_err:.2e}), "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def check_fk_arm(dev):
@@ -130,13 +182,202 @@ def check_fk_arm(dev):
                 raise AssertionError(f"K2 N={N} {dtype}: max|d| {err} > {tol}")
             if N == n_main and dtype == torch.float32:
                 main_err = err
+    arm3 = generate_arm("SimpleThreeLinksArm", dtype=torch.float64, device=dev)
+    q = torch.as_tensor(np.random.default_rng(3).uniform(-2, 2, (4096, 3)),
+                        dtype=torch.float64, device=dev)
+    c, J = arm_fk_spheres_cuda(*structure_arrays(arm3, torch.float64, dev), q)
+    c_ref, J_ref = fk_spheres_torch(*structure_arrays(arm3, torch.float64, dev), q)
+    err = max(float((c - c_ref).abs().max()), float((J - J_ref).abs().max()))
+    log(f"K2: Arm3 d=3 N=4096 float64 max|d|={err:.3e}")
+    if not err <= 1e-12:
+        raise AssertionError(f"K2 Arm3 f64: max|d| {err} > 1e-12")
     ops = structure_arrays(model, torch.float32, dev)
     q = torch.as_tensor(np.random.default_rng(2).uniform(-2, 2, (n_main, 7)),
                         dtype=torch.float32, device=dev)
     ms = cuda_ms(lambda: arm_fk_spheres_cuda(*ops, q), 20)
     plain_ms = cuda_ms(lambda: fk_spheres_torch(*ops, q), 10)
-    log(f"K2 time at N={n_main} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms}
+    S, d = 16, 7
+    nbytes = 4 * n_main * (d + S * 3 + S * 3 * d)
+    bound_ms, bound_by = bound(nbytes, n_main * (40 * d + S * (12 + 9 * d)))
+    log(f"K2 time at N={n_main} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _cell_coords(pts, sdf):
+    """Cell coordinates (N, dim) of float64 points."""
+    dim = sdf.DIM
+    return (pts[:, :dim] - sdf.origin.double()) / sdf.cell_size.double()
+
+
+def _compare_lookup(name, got, ref, near, tol):
+    """Hold K3's outputs against the float64 plain version's: `ok` exactly
+    and every output within tol * its max magnitude, except on `near`
+    queries (a cell coordinate within 1e-4 cells of a cell boundary, where
+    the float32 kernel may pick the neighbouring cell: the interpolant is
+    continuous there, its gradient jumps), which hold dist only."""
+    import torch
+
+    keep = ~near
+    if not torch.equal(got[-1][keep], ref[-1][keep]):
+        raise AssertionError(f"K3 {name}: in-range masks differ")
+    worst = 0.0
+    for k, (g, r) in enumerate(zip(got[:-1], ref[:-1])):
+        sel = torch.ones_like(keep) if k == 0 else keep
+        g, r = g[sel].double(), r[sel]
+        finite = torch.isfinite(r)
+        if not torch.equal(torch.isfinite(g), finite):
+            raise AssertionError(f"K3 {name}: output {k} non-finite where the plain is not")
+        scale = float(r[finite].abs().max()) if finite.any() else 1.0
+        err = float((g[finite] - r[finite]).abs().max()) if finite.any() else 0.0
+        if not err <= tol * scale:
+            raise AssertionError(f"K3 {name}: output {k} max|d| {err} > {tol} * {scale}")
+        worst = max(worst, err)
+    log(f"K3 {name}: N={got[0].shape[0]} max|d|={worst:.3e} "
+        f"({int(near.sum())} queries near a cell boundary hold dist only)")
+    if not bool(keep.any()):
+        raise AssertionError(f"K3 {name}: no query away from a cell boundary")
+    return worst
+
+
+def check_sdf_lookup(dev, wam_sdf, wam_pts):
+    """K3 against its plain version in float64 on the same rounded inputs
+    (relative tolerance 1e-4 in float32: the cell coordinate carries a
+    float32 rounding of ~2e-5 cells, which moves the gradient weights;
+    1e-12 in float64), and a float32 kernel also against the plain version
+    in float32 on every query (1e-5: the same cells, other rounding)."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF, pack_planar_sdf, pack_sdf
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    def operands(sdf, packed):
+        t = sdf.packed.reshape(-1, 2 ** sdf.DIM) if packed else sdf.data.reshape(-1)
+        return t, sdf.origin, sdf.cell_size, sdf.grid
+
+    def run(name, sdf, pts, packed, qpw=0):
+        tol = 1e-4 if pts.dtype == torch.float32 else 1e-12
+        got = sdf_lookup_cuda(pts, *operands(sdf, packed), qpw)
+        torch.cuda.synchronize()
+        s64 = (sdf if packed else dataclasses.replace(sdf, packed=None)).to(dtype=f64)
+        ref = sdf_lookup_torch(pts.double(), *operands(s64, packed), qpw)
+        if pts.dtype == torch.float32:
+            c = _cell_coords(pts.double(), sdf)
+            near = ((c - c.round()).abs() < 1e-4).any(-1)
+            # and every query against the plain version in float32, which
+            # picks the same cells: only FMA contraction differs
+            same = sdf_lookup_torch(pts, *operands(sdf, packed), qpw)
+            _compare_lookup(name + " (plain f32)", got, same,
+                            torch.zeros_like(near), 1e-5)
+        else:
+            near = torch.zeros(pts.shape[0], dtype=torch.bool, device=dev)
+        return _compare_lookup(name, got, ref, near, tol)
+
+    f32, f64 = torch.float32, torch.float64
+    wam_packed = pack_sdf(wam_sdf)
+    main_err = run("WAM packed f32", wam_packed, wam_pts, True)
+    run("WAM raw f32", wam_packed, wam_pts, False)
+    wam64 = pack_sdf(wam_sdf.to(dtype=f64))
+    run("WAM packed f64", wam64, wam_pts.double(), True)
+    run("WAM raw f64", wam64, wam_pts.double(), False)
+    del wam64
+
+    rng = np.random.default_rng(7)
+    ds = generate_2d_dataset("OneObstacleDataset")
+    planar = pack_planar_sdf(planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map,
+                                                       device=dev))
+    ext = np.array([ds.cols, ds.rows]) * ds.cell_size
+    n_pr = 16384 * 61  # PointRobot2D: B = 16384, 61 collision states, 1 sphere
+    pts2 = torch.as_tensor(ds.origin + rng.uniform(-0.05, 1.05, (n_pr, 2)) * ext,
+                           dtype=f32, device=dev)
+    run("OneObstacle packed f32", planar, pts2, True)
+    run("OneObstacle raw f64", planar.to(dtype=f64), pts2.double(), False)
+
+    # MultiWorld2D: 8192 worlds of 64^2, 33 collision states each
+    n, Bw, qpw = 64, 8192, 33
+    ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
+    X, Y = np.meshgrid(ys, ys)
+    cys = rng.uniform(-0.3, 0.3, Bw)
+    data = np.sqrt(X[None] ** 2 + (Y[None] - cys[:, None, None]) ** 2) - 0.3
+    worlds = pack_planar_sdf(PlanarSDF(
+        torch.tensor([-1.5, -1.5], dtype=f32, device=dev),
+        torch.tensor(3.0 / (n - 1), dtype=f32, device=dev),
+        torch.as_tensor(data, dtype=f32, device=dev)))
+    ptsw = torch.as_tensor(rng.uniform(-1.6, 1.6, (Bw * qpw, 2)), dtype=f32, device=dev)
+    run("MultiWorld packed f32", worlds, ptsw, True, qpw)
+    run("MultiWorld raw f64", worlds.to(dtype=f64), ptsw.double(), False, qpw)
+
+    # edges: the low and top faces, one step outside each, and NaN, on the
+    # two fields moved to a dyadic grid (origin -1, cell 1/128), where the
+    # face points are exact in both dtypes
+    for name, field in (("WAM", wam_packed), ("OneObstacle", planar)):
+        sdf = dataclasses.replace(field, origin=torch.full_like(field.origin, -1.0),
+                                  cell_size=torch.full_like(field.cell_size, 1 / 128))
+        o = sdf.origin.double()
+        top = o + (torch.tensor(sdf.grid[::-1], device=dev) - 1).double() * sdf.cell_size.double()
+        mid = 0.5 * (o + top)
+        pts = [o, top, mid]
+        for k in range(sdf.DIM):
+            for face, step in ((top, 1 / 1024), (o, -1 / 1024)):
+                on = mid.clone()
+                on[k] = face[k]
+                out = on.clone()
+                out[k] = out[k] + step
+                pts += [on, out]
+        nan = mid.clone()
+        nan[0] = float("nan")
+        pts = torch.stack(pts + [nan])
+        for dtype in (f32, f64):
+            s = sdf.to(dtype=dtype)
+            p = pts.to(dtype)
+            for packed in (True, False):
+                got = sdf_lookup_cuda(p, *operands(s, packed))
+                ref = sdf_lookup_torch(p, *operands(s, packed))
+                want_ok = [True] * 3 + [True, False] * (2 * sdf.DIM) + [False]
+                if got[-1].tolist() != want_ok or ref[-1].tolist() != want_ok:
+                    raise AssertionError(f"K3 {name} edges {dtype}: in-range mask "
+                                         f"{got[-1].tolist()}")
+                for g, r in zip(got[:-1], ref[:-1]):
+                    if not torch.allclose(g, r, rtol=1e-5, atol=1e-6, equal_nan=True):
+                        raise AssertionError(f"K3 {name} edges {dtype} packed={packed}")
+                if not bool(torch.isnan(got[0][-1])):
+                    raise AssertionError(f"K3 {name} edges: NaN query gave {got[0][-1]}")
+        log(f"K3 {name} edges: faces, outside and NaN agree (f32, f64, packed, raw)")
+
+    table, origin, cell, grid = operands(wam_packed, True)
+    ms = cuda_ms(lambda: sdf_lookup_cuda(wam_pts, table, origin, cell, grid), 20)
+    plain_ms = cuda_ms(lambda: sdf_lookup_torch(wam_pts, table, origin, cell, grid), 5)
+    # bytes: the points read once, the distinct packed rows these queries
+    # touch read once, the four outputs and the mask written once
+    c = _cell_coords(wam_pts.double(), wam_packed).clamp(min=0)
+    nz, rows, cols = grid
+    lo = [c[:, k].floor().clamp(max=s - 2).long() for k, s in enumerate((cols, rows, nz))]
+    touched = int(torch.unique((lo[2] * rows + lo[1]) * cols + lo[0]).numel())
+    N = wam_pts.shape[0]
+    nbytes = N * 3 * 4 + touched * 32 + N * (4 * 4 + 1)
+    bound_ms, bound_by = bound(nbytes, N * 120)
+    log(f"K3 time at N={N} f32 packed (WAM main path): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {touched} distinct rows)")
+    grid_sample_ms = _grid_sample_ms(wam_sdf, wam_pts)
+    log(f"K3 yardstick: F.grid_sample (distance only, no gradient) {grid_sample_ms:.4f} ms")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _grid_sample_ms(sdf, pts):
+    """Time of F.grid_sample's trilinear distance (no gradient) at the same
+    queries: a yardstick only, no function of the port's."""
+    import torch
+    import torch.nn.functional as F
+
+    nz, rows, cols = sdf.grid
+    size = torch.tensor([cols - 1, rows - 1, nz - 1], dtype=pts.dtype, device=pts.device)
+    g = (2 * (pts - sdf.origin) / sdf.cell_size / size - 1).reshape(1, 1, 1, -1, 3)
+    vol = sdf.data[None, None]
+    return cuda_ms(lambda: F.grid_sample(vol, g, mode="bilinear", align_corners=True), 20)
 
 
 def main_path_inputs(dev):
@@ -181,18 +422,60 @@ def main_path_inputs(dev):
     return robot, sdf, setting, params, starts, goals
 
 
-def main_path(dev, card):
+def main_path_queries(robot, sdf, setting, starts, goals):
+    """The SDF queries of the main path's first linearize: K2's sphere
+    centres of every collision state of the straight-line init, (N, 3)."""
+    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_batched
+    from gpmp2_tpu_torch.planner import init_traj_straight_line
+    from gpmp2_tpu_torch.planner.batch import make_problem
+    from gpmp2_tpu_torch.planner.problem import _collision_confs
+
     import torch
+
+    z = torch.zeros_like(starts)
+    probs = make_problem(robot, sdf, starts, z, goals, z, setting, sdf_pack=False)
+    init = init_traj_straight_line(probs.space, starts, goals, setting.total_step,
+                                   setting.total_time)
+    centers, _ = arm_fk_spheres_batched(robot, _collision_confs(probs, *init))
+    return centers.reshape(-1, 3).contiguous()
+
+
+def reset_launches():
     from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
     from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+
+    for fn in (block_tridiag_solve_cuda, arm_fk_spheres_cuda, sdf_lookup_cuda):
+        fn.launches = 0
+
+
+def read_launches():
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
+    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+
+    return {"btsolve": block_tridiag_solve_cuda.launches,
+            "fk_arm": arm_fk_spheres_cuda.launches,
+            "sdf_lookup": sdf_lookup_cuda.launches}
+
+
+def main_path(dev, card, inputs):
+    import torch
     from gpmp2_tpu_torch.planner import (collision_cost, init_traj_straight_line,
                                          make_problem, plan_batch)
 
-    robot, sdf, setting, params, starts, goals = main_path_inputs(dev)
+    robot, sdf, setting, params, starts, goals = inputs
     zeros = torch.zeros_like(starts)
+    # make_problem packs the field under its budget; pack it once here so
+    # that the timed solves reuse the table
+    packed = make_problem(robot, sdf, starts[:1], zeros[:1], goals[:1], zeros[:1],
+                          setting).sdf
+    if packed.packed is None:
+        raise AssertionError("make_problem did not pack the main path's SDF")
 
     def solve(b):
-        probs = make_problem(robot, sdf, starts[:b], zeros[:b], goals[:b], zeros[:b], setting)
+        probs = make_problem(robot, packed, starts[:b], zeros[:b], goals[:b], zeros[:b],
+                             setting)
         init = init_traj_straight_line(probs.space, probs.start_pose, probs.end_pose,
                                        setting.total_step, setting.total_time)
         res = plan_batch(probs, init, params)
@@ -203,13 +486,11 @@ def main_path(dev, card):
     solve(B_MAIN)  # warm-up
     times = []
     for _ in range(REPEATS):
-        block_tridiag_solve_cuda.launches = 0
-        arm_fk_spheres_cuda.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         res, cc = solve(B_MAIN)
         times.append(time.perf_counter() - t0)
-        launches = {"btsolve": block_tridiag_solve_cuda.launches,
-                    "fk_arm": arm_fk_spheres_cuda.launches}
+        launches = read_launches()
         if min(launches.values()) == 0:
             raise AssertionError(f"a kernel was not launched by the main path: {launches}")
     t_solve = min(times)
@@ -249,20 +530,22 @@ def main_path(dev, card):
         "plans_per_s": float((conv & free).sum()) / t_solve,
         "latency_b1_ms": warm_latency_ms(1),
         "latency_b32_ms": warm_latency_ms(32),
+        "launches": launches,
         "card": card,
     }
     log(json.dumps(metrics))
-    return launches, sdf, starts, goals, setting, params
+    return launches
 
 
-def reference_agreement(dev, sdf, starts, goals, setting, params):
+def reference_agreement(dev, inputs):
     """Four main-path problems in float64: the card (kernels) against the
-    CPU (plain versions), on identical inputs."""
+    CPU (plain versions), on identical inputs and the raw field."""
     import torch
     from gpmp2_tpu_torch.planner import (init_traj_straight_line, make_problem,
                                          plan_batch, traj_linearize)
     from gpmp2_tpu_torch.robots import generate_arm
 
+    _, sdf, setting, params, starts, goals = inputs
     f64 = torch.float64
     out = []
     for where in (dev, torch.device("cpu")):
@@ -270,7 +553,8 @@ def reference_agreement(dev, sdf, starts, goals, setting, params):
         g = goals[:4].to(device=where, dtype=f64)
         z = torch.zeros_like(s)
         probs = make_problem(generate_arm("WAMArm", dtype=f64, device=where),
-                             sdf.to(dtype=f64, device=where), s, z, g, z, setting)
+                             sdf.to(dtype=f64, device=where), s, z, g, z, setting,
+                             sdf_pack=False)
         init = init_traj_straight_line(probs.space, s, g, setting.total_step,
                                        setting.total_time)
         lin = [t.cpu() for t in traj_linearize(probs, init)]
@@ -288,6 +572,163 @@ def reference_agreement(dev, sdf, starts, goals, setting, params):
         raise AssertionError("card and CPU plans disagree")
 
 
+def suite_configs(dev, wam_sdf):
+    """bench_suite.py's configurations and draws, in its order: for each
+    config, (name, robot, setting, (q512 sdf, starts, goals), (throughput
+    sdf, starts, goals)). numpy seed 0 draws the oracle's 512-problem sets,
+    seed 1 the throughput batches; MobileBaseSE2's draws are made and
+    dropped so that every later set is the oracle's."""
+    import torch
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.kinematics.fk import PointRobotFK
+    from gpmp2_tpu_torch.kinematics.robot import make_robot_model
+    from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF
+    from gpmp2_tpu_torch.planner import TrajOptimizerSetting
+    from gpmp2_tpu_torch.robots import generate_arm
+
+    f32 = torch.float32
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=f32, device=dev)  # noqa: E731
+    rng, rng_t = np.random.default_rng(0), np.random.default_rng(1)
+    Bq = SUITE_BATCH["q512"]
+    out = []
+
+    ds = generate_2d_dataset("OneObstacleDataset")
+    sdf2 = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, device=dev)
+    robot = make_robot_model(PointRobotFK(), [(0, 0.08, (0.0, 0.0, 0.0))], device=dev)
+    setting = TrajOptimizerSetting(dof=2, total_step=10, total_time=10.0, cost_sigma=0.1,
+                                   obs_check_inter=5, opt_type="lm", max_iter=50,
+                                   rel_thresh=1e-2, Qc=np.eye(2))
+
+    def draw_pr(r, n):
+        s = np.stack([r.uniform(-0.9, -0.5, n), r.uniform(-0.9, 0.0, n)], -1)
+        g = np.stack([r.uniform(1.4, 1.8, n), r.uniform(1.2, 1.8, n)], -1)
+        return t(s), t(g)
+    out.append(("PointRobot2D", robot, setting, (sdf2, *draw_pr(rng, Bq)),
+                (sdf2, *draw_pr(rng_t, SUITE_BATCH["PointRobot2D"]))))
+
+    def draw_mb(r, n):  # MobileBaseSE2 (a later slice): drawn, not solved
+        s = np.stack([r.uniform(-3.5, -2.5, n), r.uniform(-3.5, -2.5, n),
+                      r.uniform(-0.5, 0.5, n)], -1)
+        g = np.stack([r.uniform(2.5, 3.5, n), r.uniform(2.5, 3.5, n),
+                      r.uniform(1.0, 2.0, n)], -1)
+        return s, g
+    draw_mb(rng, Bq)
+    draw_mb(rng_t, SUITE_BATCH["MobileBaseSE2"])
+
+    arm3 = generate_arm("SimpleThreeLinksArm", device=dev)
+    setting_a = TrajOptimizerSetting(
+        dof=3, total_step=10, total_time=5.0, cost_sigma=0.1, obs_check_inter=5,
+        opt_type="lm", max_iter=50, rel_thresh=1e-2, Qc=np.eye(3),
+        flag_pos_limit=True, flag_vel_limit=True,
+        joint_pos_limits_down=-np.pi * np.ones(3), joint_pos_limits_up=np.pi * np.ones(3),
+        vel_limits=1.5 * np.ones(3))
+
+    def draw_a3(r, n):
+        s = 0.2 * r.normal(size=(n, 3))
+        g = np.array([np.pi / 2, 0, 0]) + 0.2 * r.normal(size=(n, 3))
+        return t(s), t(g)
+    out.append(("Arm3Limits2D", arm3, setting_a, (sdf2, *draw_a3(rng, Bq)),
+                (sdf2, *draw_a3(rng_t, SUITE_BATCH["Arm3Limits2D"]))))
+
+    wam = generate_arm("WAMArm", device=dev)
+    setting_w = TrajOptimizerSetting(
+        dof=7, total_step=10, total_time=2.0, cost_sigma=0.02, obs_check_inter=9,
+        opt_type="lm", max_iter=50, rel_thresh=1e-2, Qc=np.eye(7))
+
+    def draw_w(r, n):
+        return (t(BASE_START + 0.03 * r.normal(size=(n, 7))),
+                t(BASE_GOAL + 0.03 * r.normal(size=(n, 7))))
+    out.append(("WAM7_3D", wam, setting_w, (wam_sdf, *draw_w(rng, Bq)),
+                (wam_sdf, *draw_w(rng_t, SUITE_BATCH["WAM7_3D"]))))
+
+    n = 64
+    ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
+    X, Y = np.meshgrid(ys, ys)
+    pr = make_robot_model(PointRobotFK(), [(0, 0.05, (0.0, 0.0, 0.0))], device=dev)
+    setting_mw = TrajOptimizerSetting(dof=2, total_step=8, total_time=4.0, cost_sigma=0.1,
+                                      obs_check_inter=3, opt_type="lm", max_iter=50,
+                                      rel_thresh=1e-2, Qc=np.eye(2))
+
+    def draw_mw(r, nn):
+        cys = r.uniform(-0.3, 0.3, nn)
+        data = np.stack([np.sqrt(X**2 + (Y - c) ** 2) - 0.3 for c in cys])
+        sdf = PlanarSDF(t([-1.5, -1.5]), t(3.0 / (n - 1)), t(data))
+        s = np.stack([np.full(nn, -0.9), r.uniform(-0.3, 0.3, nn)], -1)
+        g = np.stack([np.full(nn, 0.9), r.uniform(-0.3, 0.3, nn)], -1)
+        return sdf, t(s), t(g)
+    out.append(("MultiWorld2D", pr, setting_mw, draw_mw(rng, Bq),
+                draw_mw(rng_t, SUITE_BATCH["MultiWorld2D"])))
+    return out
+
+
+def suite(dev, card, wam_sdf):
+    """The bench_suite.py paths, each config's line and gates."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.planner import (collision_cost, init_traj_straight_line,
+                                         make_problem, plan_batch)
+    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "BASELINE_MEASURED_SUITE.json")) as fh:
+        oracles = json.load(fh)["configs"]
+    for name, robot, setting, qset, tset in suite_configs(dev, wam_sdf):
+        params = optimizer_params_from_setting(setting)
+
+        def prepare(sdf, s, g):
+            z = torch.zeros_like(s)
+            probs = make_problem(robot, sdf, s, z, g, z, setting)
+            init = init_traj_straight_line(probs.space, s, g, setting.total_step,
+                                           setting.total_time)
+            return probs, init
+
+        def run(probs, init, p):
+            t0 = time.perf_counter()
+            res = plan_batch(probs, init, p)
+            cc = collision_cost(probs, res.traj.pose)
+            conv = (res.converged & ~res.gave_up).cpu().numpy()
+            out = (conv, res.gave_up.cpu().numpy(), (cc < 1e-4).cpu().numpy(),
+                   res.iterations.float().mean().item())
+            return time.perf_counter() - t0, out
+
+        probs_q, init_q = prepare(*qset)
+        _, (conv_q, _, free_q, _) = run(probs_q, init_q,
+                                        dataclasses.replace(params, rescue_f64=True))
+        probs_t, init_t = prepare(*tset)
+        run(probs_t, init_t, params)  # warm-up
+        best = float("inf")
+        for _ in range(REPEATS):
+            reset_launches()
+            t_run, (conv, gave, free, iters) = run(probs_t, init_t, params)
+            best = min(best, t_run)
+            launches = read_launches()
+        oracle = oracles[name]
+        row = {
+            "config": name, "batch": int(conv.shape[0]),
+            "plans_per_s": float((conv & free).sum()) / best, "solve_s": best,
+            "converged_frac": float(conv.mean()), "gave_up_frac": float(gave.mean()),
+            "collision_free_frac": float(free.mean()), "mean_iters": iters,
+            "q512_converged_frac": float(conv_q.mean()),
+            "q512_collision_free_frac": float(free_q.mean()), "q512_rescue_f64": True,
+            "oracle_q512_converged_frac": oracle["converged"] / 512,
+            "oracle_q512_collision_free_frac": oracle["collision_free"] / 512,
+            "launches": launches, "card": card,
+        }
+        log(json.dumps(row))
+        need = ["btsolve", "sdf_lookup"] + (["fk_arm"] if name in ("Arm3Limits2D", "WAM7_3D")
+                                            else [])
+        if any(launches[k] == 0 for k in need):
+            raise AssertionError(f"{name}: a kernel of its path was not launched: {launches}")
+        if row["q512_converged_frac"] < row["oracle_q512_converged_frac"]:
+            raise AssertionError(f"{name}: q512 converged {row['q512_converged_frac']} < "
+                                 f"the oracle's {row['oracle_q512_converged_frac']}")
+        if abs(row["q512_collision_free_frac"] - row["oracle_q512_collision_free_frac"]) > 0.02:
+            raise AssertionError(f"{name}: q512 collision-free "
+                                 f"{row['q512_collision_free_frac']} not within 0.02 of "
+                                 f"the oracle's {row['oracle_q512_collision_free_frac']}")
+
+
 def main():
     import torch
 
@@ -301,6 +742,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # 1. device
     smi = subprocess.run(
@@ -316,21 +758,36 @@ def main():
     _build.kernels_lib()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
-    # 3, 4. kernels against their plain versions
+    # 3-5. kernels against their plain versions
     k1 = check_btsolve(dev)
     k2 = check_fk_arm(dev)
+    inputs = main_path_inputs(dev)
+    robot, sdf, setting, _, starts, goals = inputs
+    k3 = check_sdf_lookup(dev, sdf, main_path_queries(robot, sdf, setting, starts, goals))
+    log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
-    # 5. main path
-    launches, sdf, starts, goals, setting, params = main_path(dev, card)
+    # 6. main path
+    launches = main_path(dev, card, inputs)
 
-    # 6. reference agreement on a small input
-    reference_agreement(dev, sdf, starts, goals, setting, params)
+    # 7. reference agreement on a small input
+    reference_agreement(dev, inputs)
+    log(f"main path done at {time.perf_counter() - t_start:.1f} s")
+
+    # 8. the bench_suite paths
+    suite(dev, card, sdf)
+    log(f"suite done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "btsolve", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/btsolve.cu",
          "replaces": "gpmp2_tpu/ops/btsolve.py:82", "launches": launches["btsolve"], **k1},
         {"name": "fk_arm", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/fk_arm.cu",
          "replaces": "gpmp2_tpu/ops/fk_arm.py:62", "launches": launches["fk_arm"], **k2},
+        {"name": "sdf_lookup", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/sdf_lookup.cu",
+         "replaces": "profile_dma_gather.py:214 (and P1-P8: profile_dma2.py:120,181, "
+                     "profile_dma3.py:60, profile_dma4.py:82-146, profile_dma5.py:83-158, "
+                     "profile_dma6.py:61-166, profile_dma7.py:58, profile_dma8.py:68,146, "
+                     "profile_dma9.py:78)",
+         "launches": launches["sdf_lookup"], **k3},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

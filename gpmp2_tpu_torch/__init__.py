@@ -2,20 +2,24 @@
 
 The JAX package `gpmp2_tpu` stays the reference; this package mirrors its
 layout module for module and keeps its public names and argument layouts,
-with an explicit leading batch dimension where JAX used vmap. The two TPU
-kernels of the batched planner's main path are hand-written CUDA kernels
-here (csrc/), built at first use on a CUDA tensor (`_build.py`); on CPU
-tensors every wrapper runs its plain PyTorch version.
+with an explicit leading batch dimension where JAX used vmap. The TPU
+kernels of the planner's paths are hand-written CUDA kernels here (csrc/),
+built at first use on a CUDA tensor (`_build.py`); on CPU tensors every
+wrapper runs its plain PyTorch version. Entry points build on CUDA unless
+given `device="cpu"` or CPU tensors.
 
-This slice covers the batched WAM 7-DOF LM planner of bench.py: arm FK
-(`ArmFK`), 3D SDFs, the GP prior and interpolated obstacle factors, and
-the Gauss-Newton / Levenberg-Marquardt optimizer.
+Covered so far: the batched LM / Gauss-Newton planner for vector-space
+robots (DH arms with `ArmFK`, the planar `PointRobotFK`), 2D and 3D SDFs
+(corner-packed or raw, shared or one world per problem), joint and
+velocity limits, the GP prior and interpolated obstacle factors, and the
+float64 give-up rescue.
 """
 
-from .datasets import generate_3d_dataset, sdf_from_occupancy
-from .kinematics.fk import ArmFK
+from .datasets import (generate_2d_dataset, generate_3d_dataset,
+                       planar_sdf_from_occupancy, sdf_from_occupancy)
+from .kinematics.fk import ArmFK, PointRobotFK
 from .kinematics.robot import RobotModel, make_robot_model
-from .obstacle.sdf import SignedDistanceField
+from .obstacle.sdf import PlanarSDF, SignedDistanceField
 from .planner import (Trajectory, TrajOptimizerSetting, TrajProblem,
                       batch_traj_optimize, collision_cost, make_problem,
                       plan_batch)
@@ -23,8 +27,9 @@ from .robots import generate_arm
 from .solver.optimize import OptimizerParams, OptResult
 
 __all__ = [
-    "generate_3d_dataset", "sdf_from_occupancy", "ArmFK", "RobotModel",
-    "make_robot_model", "SignedDistanceField", "Trajectory",
+    "generate_2d_dataset", "generate_3d_dataset", "planar_sdf_from_occupancy",
+    "sdf_from_occupancy", "ArmFK", "PointRobotFK", "RobotModel",
+    "make_robot_model", "PlanarSDF", "SignedDistanceField", "Trajectory",
     "TrajOptimizerSetting", "TrajProblem", "batch_traj_optimize",
     "collision_cost", "make_problem", "plan_batch", "generate_arm",
     "OptimizerParams", "OptResult",

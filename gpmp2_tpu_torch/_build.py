@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 `kernels_lib()` compiles every `csrc/*.cu` with nvcc for Hopper
-(`sm_90a`) into one shared library with a plain C interface, under
+(`sm_90a`), one nvcc process per source, all started together, and links
+the objects into one shared library with a plain C interface, under
 `build/gpmp2_tpu_torch/<source hash>/libgpmp2_tpu_torch_kernels.so` beside
 the package, and loads it. Nothing is built at import time: the first
 CUDA tensor that reaches a kernel wrapper triggers the build, so the
@@ -26,17 +27,21 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "gpmp2_tpu_torch"
 _LIB_NAME = "libgpmp2_tpu_torch_kernels.so"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of csrc/*.cu; every launcher returns a cudaError_t as int
 _SIGNATURES = {
     # D, U, b, lam, x, G, B, n, m, scale, f64, stream
     "gpmp2_btsolve": [_P] * 6 + [_I] * 5 + [_P],
     # q, consts, base, scent, link_ids, centers, J, N, d, S, f64, stream
     "gpmp2_fk_arm": [_P] * 7 + [_I] * 4 + [_P],
+    # pts, stride, table, origin, cell, out, ok, N, queries_per_world, nz,
+    # rows, cols, dim, packed, f64, stream
+    "gpmp2_sdf_lookup": [_P, _I] + [_P] * 5 + [_L] * 2 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -89,6 +94,25 @@ def build_library(cmd, out: Path) -> None:
             os.unlink(tmp)
 
 
+def _compile_objects(nvcc: str, sources, obj_dir: Path):
+    """Compile each source to an object, all nvcc processes at once."""
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sources:
+        obj = obj_dir / (src.stem + ".o")
+        cmd = [nvcc, *_NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("gpmp2_tpu_torch: nvcc failed on " + "\n".join(failed))
+    return [str(obj) for _, obj, _ in procs]
+
+
 def kernels_lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
@@ -96,8 +120,12 @@ def kernels_lib() -> ctypes.CDLL:
         if _lib is None:
             path = _library_path()
             if not path.exists():
-                cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-                build_library([_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC), *cu], path)
+                nvcc = _nvcc()
+                cu = [s for s in _sources() if s.suffix == ".cu"]
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                    objs = _compile_objects(nvcc, cu, Path(tmp))
+                    build_library([nvcc, *_ARCH, "-shared", *objs], path)
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -4,7 +4,7 @@ DH convention (Arm.cpp:22-27, Spong eq. 3.10):
   H_j(theta) = Rz(theta_j + bias_j) * Tz(d_j) * Tx(a_j) * Rx(alpha_j)
   link_pose[j] = base * H_0 * ... * H_j
 
-Only `ArmFK` is ported so far; the point robot and the mobile families come
+`ArmFK` and the planar `PointRobotFK` are ported; the mobile families come
 with later slices. Configurations carry any leading batch dimensions.
 """
 
@@ -15,11 +15,13 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from ..geometry import se3
 from ..geometry.se3 import Pose3
 from ..geometry.statespace import StateSpace, VectorSpace
 
-__all__ = ["ArmFK", "link_poses", "state_space_of", "dof_of", "num_links_of"]
+__all__ = ["ArmFK", "PointRobotFK", "link_poses", "state_space_of", "dof_of",
+           "num_links_of"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +38,7 @@ class ArmFK:
     @staticmethod
     def create(a, alpha, d, theta_bias=None, base_pose: Optional[Pose3] = None,
                dtype=torch.float32, device=None) -> "ArmFK":
+        device = resolve_device(device)
         f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
         a = f(a)
         theta_bias = torch.zeros_like(a) if theta_bias is None else f(theta_bias)
@@ -55,6 +58,18 @@ class ArmFK:
     def to(self, dtype=None, device=None) -> "ArmFK":
         return ArmFK(*(t.to(dtype=dtype, device=device)
                        for t in dataclasses.astuple(self)))
+
+
+@dataclasses.dataclass(frozen=True)
+class PointRobotFK:
+    """Planar translating point robot (reference PointRobot.h:25-63): one
+    link at (x, y, 0) with identity rotation; dofs past the second (e.g.
+    PointRobot(3, 1)'s heading) do not move it."""
+
+    dof: int = 2
+
+    def to(self, dtype=None, device=None) -> "PointRobotFK":
+        return self
 
 
 def _rot_z(theta):
@@ -83,6 +98,11 @@ def _dh_fixed_pose(fk: ArmFK, j: int) -> Pose3:
 def link_poses(fk: ArmFK, q) -> Pose3:
     """World link poses for configurations q (..., dof):
     rot (..., dof, 3, 3), trans (..., dof, 3)."""
+    if isinstance(fk, PointRobotFK):
+        # PointRobot.cpp:15-50
+        eye = torch.eye(3, dtype=q.dtype, device=q.device)
+        trans = torch.stack([q[..., 0], q[..., 1], torch.zeros_like(q[..., 0])], -1)
+        return Pose3(eye.expand(q.shape[:-1] + (1, 3, 3)), trans[..., None, :])
     if not isinstance(fk, ArmFK):
         raise NotImplementedError(f"FK family {type(fk).__name__} is a later slice")
     rots, transs = [], []
@@ -98,13 +118,13 @@ def link_poses(fk: ArmFK, q) -> Pose3:
 
 
 def dof_of(fk) -> int:
-    if isinstance(fk, ArmFK):
+    if isinstance(fk, (ArmFK, PointRobotFK)):
         return fk.dof
     raise NotImplementedError(f"FK family {type(fk).__name__} is a later slice")
 
 
 def num_links_of(fk) -> int:
-    return dof_of(fk)
+    return 1 if isinstance(fk, PointRobotFK) else dof_of(fk)
 
 
 def state_space_of(fk) -> StateSpace:

@@ -10,9 +10,9 @@ from __future__ import annotations
 import torch
 
 from ..kinematics.robot import RobotModel, sphere_centers_world
-from .sdf import SignedDistanceField, sdf_lookup
+from .sdf import PlanarSDF, SignedDistanceField, sdf_lookup_points
 
-__all__ = ["hinge_loss", "obstacle_factor_error"]
+__all__ = ["hinge_loss", "obstacle_factor_error", "obstacle_planar_factor_error"]
 
 
 def hinge_loss(dist, eps_total, in_range):
@@ -27,5 +27,14 @@ def obstacle_factor_error(model: RobotModel, sdf: SignedDistanceField, q, eps):
     (ObstacleSDFFactor::evaluateError, ObstacleSDFFactor-inl.h:17-60)."""
     centers = sphere_centers_world(model, q)
     eps_total = model.sphere_radii + eps
-    dist, _, ok = sdf_lookup(sdf, centers)
+    dist, *_, ok = sdf_lookup_points(sdf, centers)
     return hinge_loss(dist, eps_total, ok)
+
+
+def obstacle_planar_factor_error(model: RobotModel, sdf: PlanarSDF, q, eps):
+    """2D obstacle factor residual, spheres projected to the plane: q (..., d)
+    -> (..., S) (ObstaclePlanarSDFFactor::evaluateError,
+    ObstaclePlanarSDFFactor-inl.h:17-57)."""
+    centers = sphere_centers_world(model, q)
+    dist, *_, ok = sdf_lookup_points(sdf, centers)  # reads x and y
+    return hinge_loss(dist, model.sphere_radii + eps, ok)

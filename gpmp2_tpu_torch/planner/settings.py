@@ -6,12 +6,11 @@ with identical defaults (TrajOptimizerSetting.cpp:15-56):
 
   total_step 10, total_time 1.0, epsilon 0.2, cost_sigma 0.1,
   obs_check_inter 5, Dogleg optimizer, max_iter 50, rel_thresh 1e-2,
-  conf/vel prior sigma 1e-4, Qc = identity, limits off,
-  final_iter_no_increase true.
+  conf/vel prior sigma 1e-4, Qc = identity, limits off (position limits
+  -/+1e6, velocity limit 1e6), pos/vel limit sigma 1e-3, limit thresh
+  1e-3, final_iter_no_increase true.
 
-Joint limits and the verbosity trace are later slices: their value fields
-are absent, and `make_problem` raises when `flag_pos_limit` or
-`flag_vel_limit` is set.
+The verbosity trace is a later slice.
 
 Noise models are expressed directly as sigmas (the reference wraps them in
 gtsam noise models; the solver consumes precisions 1/sigma^2).
@@ -41,6 +40,13 @@ class TrajOptimizerSetting:
     # joint limits
     flag_pos_limit: bool = False
     flag_vel_limit: bool = False
+    joint_pos_limits_up: Optional[np.ndarray] = None  # default +1e6
+    joint_pos_limits_down: Optional[np.ndarray] = None  # default -1e6
+    vel_limits: Optional[np.ndarray] = None  # default 1e6
+    pos_limit_thresh: Optional[np.ndarray] = None  # default 1e-3
+    vel_limit_thresh: Optional[np.ndarray] = None  # default 1e-3
+    pos_limit_sigma: Optional[np.ndarray] = None  # default 1e-3 (isotropic)
+    vel_limit_sigma: Optional[np.ndarray] = None  # default 1e-3
     # obstacle factors
     epsilon: float = 0.2
     cost_sigma: float = 0.1
@@ -55,6 +61,24 @@ class TrajOptimizerSetting:
 
     def __post_init__(self):
         d = self.dof
+
+        def vec(v, default):
+            if v is None:
+                return np.full((d,), default, dtype=np.float64)
+            v = np.asarray(v, dtype=np.float64)
+            if v.ndim == 0:
+                return np.full((d,), float(v), dtype=np.float64)
+            if v.shape != (d,):
+                raise ValueError(f"TrajOptimizerSetting: expected ({d},), got {v.shape}")
+            return v
+
+        self.joint_pos_limits_up = vec(self.joint_pos_limits_up, 1e6)
+        self.joint_pos_limits_down = vec(self.joint_pos_limits_down, -1e6)
+        self.vel_limits = vec(self.vel_limits, 1e6)
+        self.pos_limit_thresh = vec(self.pos_limit_thresh, 1e-3)
+        self.vel_limit_thresh = vec(self.vel_limit_thresh, 1e-3)
+        self.pos_limit_sigma = vec(self.pos_limit_sigma, 1e-3)
+        self.vel_limit_sigma = vec(self.vel_limit_sigma, 1e-3)
         if self.Qc is None:
             self.Qc = np.eye(d)
         else:

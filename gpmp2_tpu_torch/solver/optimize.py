@@ -47,6 +47,9 @@ class OptimizerParams:
     lambda_max: float = 1e5
     lambda_min: float = 0.0
     reject_budget: int = 14  # extra attempts to absorb rejected LM steps
+    # plan_batch re-solves the lanes that gave up in float64
+    # (planner/batch.py:_rescue_gave_up_f64)
+    rescue_f64: bool = False
 
 
 class OptResult(NamedTuple):

@@ -2,7 +2,8 @@
 
 A caller that holds gpmp2_tpu objects flattens them to numpy arrays and
 passes them in, so both packages compute on identical inputs; nothing
-here imports JAX.
+here imports JAX. Every function here puts its tensors on `device` (default:
+CUDA).
 """
 
 from __future__ import annotations
@@ -10,19 +11,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..geometry.se3 import Pose3
-from ..kinematics.fk import ArmFK
+from ..kinematics.fk import ArmFK, PointRobotFK
 from ..kinematics.robot import RobotModel, check_sphere_table
-from ..obstacle.sdf import SignedDistanceField
+from ..obstacle.sdf import PlanarSDF, SignedDistanceField
 from ..planner.problem import TrajProblem
 
-__all__ = ["robot_model_from_numpy", "sdf_from_numpy", "problem_from_numpy",
-           "PROBLEM_ARRAYS"]
+__all__ = ["robot_model_from_numpy", "point_robot_from_numpy", "sdf_from_numpy",
+           "planar_sdf_from_numpy", "problem_from_numpy", "PROBLEM_ARRAYS"]
 
 # the TrajProblem fields that problem_from_numpy takes as arrays
 PROBLEM_ARRAYS = ("dt", "Qc", "start_pose", "start_vel", "end_pose", "end_vel",
                   "pose_prior_w", "vel_prior_w", "goal_pose_w", "goal_vel_w",
-                  "obs_w", "eps", "taus")
+                  "obs_w", "eps", "taus", "pos_lim_down", "pos_lim_up",
+                  "pos_lim_thresh", "pos_lim_w", "vel_lim", "vel_lim_thresh",
+                  "vel_lim_w")
+
+
+def _converter(dtype, device):
+    """array -> tensor of `dtype` on `device` (default: CUDA)."""
+    device = resolve_device(device)
+    return lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def _robot(fk, sphere_link_ids, sphere_radii, sphere_centers, who, dtype, device):
+    """RobotModel of `fk` and its sphere table, validated where it enters."""
+    ids = np.array(sphere_link_ids, np.int64)
+    radii = np.array(sphere_radii, np.float64)
+    check_sphere_table(fk, ids, radii, who)
+    f = _converter(dtype, device)
+    return RobotModel(fk, torch.as_tensor(ids, device=resolve_device(device)),
+                      f(radii), f(sphere_centers))
 
 
 def robot_model_from_numpy(a, alpha, d, theta_bias, base_rot, base_trans,
@@ -35,34 +55,50 @@ def robot_model_from_numpy(a, alpha, d, theta_bias, base_rot, base_trans,
                       theta_bias=np.array(theta_bias),
                       base_pose=Pose3(np.array(base_rot), np.array(base_trans)),
                       dtype=dtype, device=device)
-    ids = np.array(sphere_link_ids, np.int64)
-    radii = np.array(sphere_radii, np.float64)
-    check_sphere_table(fk, ids, radii, "robot_model_from_numpy")
-    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)  # noqa: E731
-    return RobotModel(
-        fk,
-        torch.as_tensor(ids, device=device),
-        f(radii),
-        f(sphere_centers),
-    )
+    return _robot(fk, sphere_link_ids, sphere_radii, sphere_centers,
+                  "robot_model_from_numpy", dtype, device)
 
 
-def sdf_from_numpy(origin, cell_size, data, *, dtype=torch.float32,
+def point_robot_from_numpy(dof, sphere_link_ids, sphere_radii, sphere_centers, *,
+                           dtype=torch.float32, device=None) -> RobotModel:
+    """RobotModel of the planar point robot with `dof` dofs and its sphere
+    table (link ids (S,), radii (S,), centres (S, 3))."""
+    return _robot(PointRobotFK(int(dof)), sphere_link_ids, sphere_radii,
+                  sphere_centers, "point_robot_from_numpy", dtype, device)
+
+
+def sdf_from_numpy(origin, cell_size, data, packed=None, *, dtype=torch.float32,
                    device=None) -> SignedDistanceField:
-    """SignedDistanceField from origin (3,), cell size () and (Z, Y, X) data."""
-    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)  # noqa: E731
-    return SignedDistanceField(f(origin), f(cell_size), f(data))
+    """SignedDistanceField from origin (3,), cell size (), ([W,] Z, Y, X)
+    data and, optionally, its packed table ([W,] cells, 8)."""
+    f = _converter(dtype, device)
+    return SignedDistanceField(f(origin), f(cell_size), f(data),
+                               None if packed is None else f(packed))
 
 
-def problem_from_numpy(robot: RobotModel, sdf: SignedDistanceField, N: int, *,
-                       dtype=torch.float32, device=None, **arrays) -> TrajProblem:
+def planar_sdf_from_numpy(origin, cell_size, data, packed=None, *,
+                          dtype=torch.float32, device=None) -> PlanarSDF:
+    """PlanarSDF from origin (2,), cell size (), ([W,] rows, cols) data and,
+    optionally, its row-major packed table ([W,] cells, 4)."""
+    f = _converter(dtype, device)
+    return PlanarSDF(f(origin), f(cell_size), f(data),
+                     None if packed is None else f(packed))
+
+
+def problem_from_numpy(robot: RobotModel, sdf, N: int, *, flag_pos_limit=False,
+                       flag_vel_limit=False, dtype=torch.float32, device=None,
+                       **arrays) -> TrajProblem:
     """TrajProblem from the port's robot and SDF, the number of intervals N,
-    and every array named in PROBLEM_ARRAYS (start/end states (B, d))."""
+    the limit flags, and every array named in PROBLEM_ARRAYS (start/end
+    states (B, d))."""
     if set(arrays) != set(PROBLEM_ARRAYS):
         raise TypeError(
             f"problem_from_numpy: needs exactly {sorted(PROBLEM_ARRAYS)}, "
             f"got {sorted(arrays)}")
-    f = lambda x: torch.as_tensor(np.array(x), dtype=dtype, device=device)  # noqa: E731
+    device = resolve_device(device)
+    f = _converter(dtype, device)
     return TrajProblem(robot=robot.to(dtype=dtype, device=device),
                        sdf=sdf.to(dtype=dtype, device=device), N=int(N),
+                       flag_pos_limit=bool(flag_pos_limit),
+                       flag_vel_limit=bool(flag_vel_limit),
                        **{k: f(v) for k, v in arrays.items()})

@@ -36,7 +36,7 @@ def _port_robot(jmodel, dtype):
                                   fk.base_rot, fk.base_trans,
                                   jmodel.sphere_link_ids, jmodel.sphere_radii,
                                   jmodel.sphere_centers)),
-        dtype=dtype)
+        dtype=dtype, device="cpu")
 
 
 def _three_link(dtype):
@@ -122,11 +122,11 @@ def test_robot_from_numpy_rejects_bad_link_id(bad_id):
             *(np.asarray(x) for x in (fk.a, fk.alpha, fk.d, fk.theta_bias,
                                       fk.base_rot, fk.base_trans)),
             np.array([0, bad_id]), np.array([0.05, 0.05]), np.zeros((2, 3)),
-            dtype=torch.float64)
+            dtype=torch.float64, device="cpu")
 
 
 def test_batched_entry_keeps_leading_dims():
-    model = generate_arm("WAMArm", dtype=torch.float64)
+    model = generate_arm("WAMArm", dtype=torch.float64, device="cpu")
     qs = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (4, 5, 7)))
     c, J = arm_fk_spheres_batched(model, qs)
     c_r, J_r = sphere_centers_and_jac(model, qs)

@@ -74,3 +74,62 @@ def test_fk_arm_kernel_matches_plain(cuda_device, dtype, N):
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((c.double() - c_ref).abs().max()) <= tol
     assert float((J.double() - J_ref).abs().max()) <= tol
+
+
+def _lookup_case(dim, worlds, n, dtype, device, seed=3):
+    """A random field, its packed and raw tables, and points over the grid
+    and a margin outside it, with one query in each case set to NaN."""
+    from gpmp2_tpu_torch.obstacle.sdf import (PlanarSDF, SignedDistanceField,
+                                              pack_planar_sdf, pack_sdf)
+
+    rng = np.random.default_rng(seed)
+    grid = (40, 50) if dim == 2 else (20, 30, 40)
+    data = rng.normal(size=((worlds,) if worlds else ()) + grid)
+    origin = np.array([-0.5, -1.0, 0.25][:dim])
+    cell = 0.05
+    cls, pack = (PlanarSDF, pack_planar_sdf) if dim == 2 else (SignedDistanceField, pack_sdf)
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    sdf = pack(cls(f(origin), f(cell), f(data)))
+    ext = np.array(grid[::-1]) * cell
+    pts = origin + rng.uniform(-0.1, 1.1, size=(max(worlds, 1) * n, dim)) * ext
+    pts[0, 0] = np.nan
+    return sdf, f(pts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("worlds", [0, 16])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sdf_lookup_kernel_matches_plain(cuda_device, dim, worlds, packed, dtype):
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    sdf, pts = _lookup_case(dim, worlds, 5000, dtype, cuda_device)
+    k = 2 ** dim
+    table = sdf.packed.reshape(-1, k) if packed else sdf.data.reshape(-1)
+    qpw = 5000 if worlds else 0
+    got = sdf_lookup_cuda(pts, table, sdf.origin, sdf.cell_size, sdf.grid, qpw)
+    ref = sdf_lookup_torch(pts, table, sdf.origin, sdf.cell_size, sdf.grid, qpw)
+    # same arithmetic in the same dtype on the same inputs; only FMA
+    # contraction differs, so a few ulps of the field's scale
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert torch.equal(got[-1], ref[-1])
+    # the NaN x coordinate reaches dist (and the gradients that read fx)
+    assert torch.isnan(got[0][0]) and torch.isnan(ref[0][0])
+    for g, r in zip(got[:-1], ref[:-1]):
+        fin = ~torch.isnan(r)
+        assert torch.equal(~torch.isnan(g), fin)
+        scale = float(r[fin].abs().max())
+        assert float((g[fin] - r[fin]).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_sdf_lookup_kernel_rejects_misaligned_table(cuda_device):
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+
+    sdf, pts = _lookup_case(3, 0, 100, torch.float32, cuda_device)
+    buf = torch.empty(sdf.packed.numel() + 1, dtype=torch.float32, device=cuda_device)
+    rows = buf[1:].view(-1, 8)
+    rows.copy_(sdf.packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        sdf_lookup_cuda(pts, rows, sdf.origin, sdf.cell_size, sdf.grid)

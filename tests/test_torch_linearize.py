@@ -89,12 +89,13 @@ def port_problem(jprob, dtype=torch.float64):
         *(np.asarray(x) for x in (fk.a, fk.alpha, fk.d, fk.theta_bias,
                                   fk.base_rot, fk.base_trans, r.sphere_link_ids,
                                   r.sphere_radii, r.sphere_centers)),
-        dtype=dtype)
+        dtype=dtype, device="cpu")
     sdf = sdf_from_numpy(np.asarray(jprob.sdf.origin),
                          np.asarray(jprob.sdf.cell_size),
-                         np.asarray(jprob.sdf.data), dtype=dtype)
+                         np.asarray(jprob.sdf.data), dtype=dtype, device="cpu")
     arrays = {k: np.asarray(getattr(jprob, k)) for k in PROBLEM_ARRAYS}
-    return problem_from_numpy(robot, sdf, jprob.N, dtype=dtype, **arrays)
+    return problem_from_numpy(robot, sdf, jprob.N, dtype=dtype, device="cpu",
+                              **arrays)
 
 
 def edge_arm():
@@ -194,7 +195,7 @@ def test_sdf_edges_match_jax():
         [0.25, 0.0, 0.0], [np.nan, 0.0, 0.0], [0.1, np.nan, 0.3],
     ])
     jsdf = JSDF(jnp.asarray(ORIGIN), jnp.asarray(CELL), jnp.asarray(field))
-    tsdf = sdf_from_numpy(ORIGIN, CELL, field, dtype=torch.float64)
+    tsdf = sdf_from_numpy(ORIGIN, CELL, field, dtype=torch.float64, device="cpu")
     ref = j_lookup(jsdf, *(jnp.asarray(pts[:, k]) for k in range(3)))
     got = sdf_lookup_components(tsdf, *(torch.from_numpy(pts[:, k]) for k in range(3)))
     for g, r in zip(got, ref):

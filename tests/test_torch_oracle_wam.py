@@ -25,8 +25,8 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "oracle_wam7_3d.np
 def test_wam7_oracle_parity():
     fx = np.load(FIXTURE, allow_pickle=True)
     ds = generate_3d_dataset("WAMDeskDataset")
-    sdf = sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=F64)
-    robot = generate_arm("WAMArm", dtype=F64)
+    sdf = sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=F64, device="cpu")
+    robot = generate_arm("WAMArm", dtype=F64, device="cpu")
     setting = TrajOptimizerSetting(
         dof=7, total_step=int(fx["meta_n_steps"]),
         total_time=float(fx["meta_total_time"]),
@@ -38,8 +38,9 @@ def test_wam7_oracle_parity():
     start = torch.as_tensor(fx["meta_start"], dtype=F64)
     end = torch.as_tensor(fx["meta_end"], dtype=F64)
     zeros = torch.zeros(7, dtype=F64)
+    # sdf_pack=False: the 300^3 float64 field would pack into a 1.7 GB table
     prob = make_problem(robot, sdf, start[None], zeros[None], end[None],
-                        zeros[None], setting)
+                        zeros[None], setting, sdf_pack=False)
 
     # every factor at the oracle's initial and optimized trajectories
     def err(pose_key, vel_key):
@@ -58,6 +59,7 @@ def test_wam7_oracle_parity():
     np.testing.assert_allclose(mine.vel.numpy(), fx["init_vel"], atol=1e-12)
 
     # LM within 1% of the oracle's final cost, converged, not given up
-    res = batch_traj_optimize(robot, sdf, start, zeros, end, zeros, setting)
+    res = batch_traj_optimize(robot, sdf, start, zeros, end, zeros, setting,
+                              sdf_pack=False)
     assert bool(res.converged) and not bool(res.gave_up)
     assert float(res.error) <= float(fx["final_error"]) * 1.01 + 1e-9

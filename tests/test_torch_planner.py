@@ -76,8 +76,8 @@ def test_batch_traj_optimize_single_problem():
     """The unbatched entry point plans one problem and drops the batch axis."""
     setting = wam_setting()
     starts, goals = wam_endpoints(2, seed=3)
-    sdf = sdf_from_numpy(ORIGIN, CELL, world_field(), dtype=torch.float64)
-    robot = generate_arm("WAMArm", dtype=torch.float64)
+    sdf = sdf_from_numpy(ORIGIN, CELL, world_field(), dtype=torch.float64, device="cpu")
+    robot = generate_arm("WAMArm", dtype=torch.float64, device="cpu")
     one = batch_traj_optimize(robot, sdf, torch.from_numpy(starts[0]),
                               torch.zeros(7, dtype=torch.float64),
                               torch.from_numpy(goals[0]),
