@@ -8,9 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the device, and nvidia-smi's name and power limit;
 2. build the CUDA kernels from gpmp2_tpu_torch/csrc (timed);
 3. kernel K1 (block-tridiagonal solve) against its plain PyTorch version,
-   which runs in float64 on the float32-rounded inputs; torch.linalg.solve
-   on the same damped systems assembled dense is timed beside it;
-4. kernel K2 (arm FK + sphere Jacobians) against its plain version;
+   which runs in float64 on the float32-rounded inputs, at the main shape
+   and the warp-per-problem edges (m = 2 and 34, n = 1, 2 and 101, B = 1,
+   lambda = 0, scaling off, one lane with an indefinite block); timed at
+   B = 2048 and B = 1; torch.linalg.solve on the same damped systems
+   assembled dense is timed beside it;
+4. kernel K2 (arm FK + sphere Jacobians) against its plain version, on
+   WAM and Arm3 and on synthetic DH chains at the tile edges (N = 1, P - 1,
+   P + 1 for d = 1, 3, 16 and S = 1, 13, 16);
 5. kernel K3 (SDF lookup) against its plain version: the WAM main-path
    queries on the 300^3 field (packed and raw, float32 and float64), the
    OneObstacle 300^2 planar field, 8192 per-problem 64^2 worlds, and
@@ -34,7 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2 in the arm configs.
 
 It prints one informational JSON line of main-path metrics, one per suite
-config, the kernels' JSON line, and last `{"ok": true, "device": {...}}`.
+config, a line of K1's and K2's recorded times before their current
+designs (not measured in the run), the kernels' JSON line, and last
+`{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
 """
@@ -58,6 +65,11 @@ F32_FLOPS = 67e12
 # throughput batches (SUITE_B_* defaults there)
 SUITE_BATCH = {"q512": 512, "PointRobot2D": 16384, "MobileBaseSE2": 4096,
                "Arm3Limits2D": 8192, "WAM7_3D": 2048, "MultiWorld2D": 8192}
+# K1's and K2's times at the same shapes before their current designs
+# (one thread per problem, one thread per configuration), as PERF.md's
+# kernel table records them (NVIDIA H100 80GB HBM3, 700.00 W); printed
+# for reference on a line of their own, never in the kernels' JSON line
+RECORDED_PREV_MS = {"btsolve": 0.691, "fk_arm": 2.205}
 
 
 def log(*args):
@@ -88,35 +100,41 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def random_system(B, n, m, seed, damped=True):
-    """Random SPD block-tridiagonal systems (float64 numpy)."""
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, n, m, m))
-    D = A @ np.swapaxes(A, -1, -2) + 10 * np.eye(m)
-    U = 0.3 * rng.normal(size=(B, n - 1, m, m))
-    b = rng.normal(size=(B, n, m))
-    lam = rng.uniform(0.0, 50.0, size=(B,)) if damped else np.zeros(B)
-    return D, U, b, lam
-
-
 def check_btsolve(dev):
     import torch
     from gpmp2_tpu_torch.ops.btsolve import (block_tridiag_solve_cuda,
                                              block_tridiag_solve_torch)
+    from gpmp2_tpu_torch.testing import random_system
 
+    f32, f64 = torch.float32, torch.float64
     cases = [  # (name, dtype, B, n, m, damped, scaling, relative tolerance)
-        ("main", torch.float32, B_MAIN, 11, 14, True, True, 1e-4),
-        ("ragged", torch.float32, 37, 5, 6, True, True, 1e-4),
-        ("lambda0", torch.float32, B_MAIN, 11, 14, False, True, 1e-4),
-        ("noscale", torch.float32, 100, 7, 4, True, False, 1e-4),
-        ("f64", torch.float64, 64, 11, 14, True, True, 1e-10),
-        ("f64_m4", torch.float64, 256, 11, 4, True, True, 1e-10),
-        ("f64_m6", torch.float64, 256, 11, 6, True, True, 1e-10),
+        ("main", f32, B_MAIN, 11, 14, True, True, 1e-4),
+        ("ragged", f32, 37, 5, 6, True, True, 1e-4),
+        ("lambda0", f32, B_MAIN, 11, 14, False, True, 1e-4),
+        ("noscale", f32, 100, 7, 4, True, False, 1e-4),
+        ("f64", f64, 64, 11, 14, True, True, 1e-10),
+        ("f64_m4", f64, 256, 11, 4, True, True, 1e-10),
+        ("f64_m6", f64, 256, 11, 6, True, True, 1e-10),
+    ]
+    # the warp-per-problem edges, on systems conditioned alike at every m:
+    # the smallest and largest block, one and two blocks, a long chain, a
+    # single problem, and the largest block in float64 (29.6 KB per warp)
+    edges = [
+        ("m2", f32, 33, 11, 2, True, True, 1e-4),
+        ("m34", f32, 33, 11, 34, True, True, 1e-4),
+        ("n1", f32, 33, 1, 14, True, True, 1e-4),
+        ("n2", f32, 33, 2, 14, True, True, 1e-4),
+        ("n101", f32, B_MAIN, 101, 14, True, True, 1e-4),
+        ("B1", f32, 1, 11, 14, True, True, 1e-4),
+        ("f64_m34", f64, 33, 11, 34, True, True, 1e-10),
+        ("f64_lambda0_noscale", f64, 33, 11, 14, False, False, 1e-10),
     ]
     main_err = None
-    for name, dtype, B, n, m, damped, scaling, tol in cases:
+    for cond, (name, dtype, B, n, m, damped, scaling, tol) in (
+            [(False, c) for c in cases] + [(True, c) for c in edges]):
         D, U, b, lam = (torch.as_tensor(a, dtype=dtype, device=dev)
-                        for a in random_system(B, n, m, seed=B + n + m, damped=damped))
+                        for a in random_system(B, n, m, seed=B + n + m, damped=damped,
+                                               conditioned=cond))
         x = block_tridiag_solve_cuda(D, U, b, scaling, lam)
         torch.cuda.synchronize()
         x_ref = block_tridiag_solve_torch(D.double(), U.double(), b.double(),
@@ -129,10 +147,13 @@ def check_btsolve(dev):
             raise AssertionError(f"K1 {name}: max|dx| {err} > {tol} * {scale}")
         if name == "main":
             main_err = err
+    check_btsolve_indefinite_lane(dev)
     B, n, m = B_MAIN, 11, 14
     D, U, b, lam = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                     for a in random_system(B, n, m, seed=1))
     ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 50)
+    D1, U1, b1, lam1 = (t[:1].contiguous() for t in (D, U, b, lam))
+    ms_b1 = cuda_ms(lambda: block_tridiag_solve_cuda(D1, U1, b1, True, lam1), 50)
     plain_ms = cuda_ms(lambda: block_tridiag_solve_torch(D, U, b, True, lam), 10)
     # the same damped systems, dense (B, n m, n m), for one library call
     H = torch.zeros((B, n, m, n, m), dtype=torch.float32, device=dev)
@@ -152,9 +173,39 @@ def check_btsolve(dev):
     bound_ms, bound_by = bound(nbytes, B * n * (m**3 / 3 + 4 * m * m * (m + 1) + 2 * m * m))
     log(f"K1 time at B={B} n={n} m={m} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.linalg.solve dense {library_ms:.4f} ms (max|dx| vs K1 {lib_err:.2e}), "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"bound {bound_ms:.4f} ms ({bound_by}); kernel at B=1 {ms_b1:.4f} ms")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "ms_b1": ms_b1}
+
+
+def check_btsolve_indefinite_lane(dev):
+    """An indefinite block on one lane: that lane's x is non-finite in the
+    kernel and the plain version alike, and every other lane agrees."""
+    import torch
+    from gpmp2_tpu_torch.ops.btsolve import (block_tridiag_solve_cuda,
+                                             block_tridiag_solve_torch)
+    from gpmp2_tpu_torch.testing import random_system
+
+    B, n, m, bad = 33, 11, 14, 7
+    D, U, b, lam = random_system(B, n, m, seed=9, conditioned=True)
+    # off-diagonal 3 sqrt(d0 d1): a negative pivot after damping and scaling
+    d0, d1 = D[bad, 5, 0, 0] + lam[bad], D[bad, 5, 1, 1] + lam[bad]
+    D[bad, 5, 0, 1] = D[bad, 5, 1, 0] = 3 * np.sqrt(d0 * d1)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        Dt, Ut, bt, lt = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (D, U, b, lam))
+        x = block_tridiag_solve_cuda(Dt, Ut, bt, True, lt)
+        x_ref = block_tridiag_solve_torch(Dt.double(), Ut.double(), bt.double(), True,
+                                          lt.double())
+        good = torch.arange(B, device=dev) != bad
+        xg, rg = x[good].double(), x_ref[good]
+        err = float((xg - rg).abs().max())
+        log(f"K1 indefinite lane {dtype}: lane finite {bool(torch.isfinite(x[bad]).any())}, "
+            f"others max|dx|={err:.3e}")
+        if bool(torch.isfinite(x[bad]).any()) or bool(torch.isfinite(x_ref[bad]).any()):
+            raise AssertionError(f"K1 indefinite lane {dtype}: finite values on the bad lane")
+        if not (bool(torch.isfinite(xg).all()) and err <= tol * float(rg.abs().max())):
+            raise AssertionError(f"K1 indefinite lane {dtype}: other lanes max|dx| {err}")
 
 
 def check_fk_arm(dev):
@@ -191,6 +242,7 @@ def check_fk_arm(dev):
     log(f"K2: Arm3 d=3 N=4096 float64 max|d|={err:.3e}")
     if not err <= 1e-12:
         raise AssertionError(f"K2 Arm3 f64: max|d| {err} > 1e-12")
+    check_fk_arm_tiles(dev, n_main)
     ops = structure_arrays(model, torch.float32, dev)
     q = torch.as_tensor(np.random.default_rng(2).uniform(-2, 2, (n_main, 7)),
                         dtype=torch.float32, device=dev)
@@ -203,6 +255,39 @@ def check_fk_arm(dev):
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_fk_arm_tiles(dev, n_main):
+    """K2's tile edges on synthetic DH chains: one configuration, one short
+    of a tile and one over, at d = 1, 3 and 16 and S = 1, 13 and 16, in
+    float32 and float64, and a 16-joint chain at the main-path count; the
+    plain version runs in float64 on the same rounded operands."""
+    import torch
+    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda, fk_spheres_torch, launch_plan
+    from gpmp2_tpu_torch.testing import dh_chain
+
+    for d, S in ((16, 16), (1, 1), (3, 13)):
+        arrays = dh_chain(d, S, seed=d * 100 + S)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            ops = [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays[:3]]
+            ops.append(torch.as_tensor(arrays[3], dtype=torch.int32, device=dev))
+            ref_ops = [t.double() for t in ops[:3]] + ops[3:]
+            P = launch_plan(d, S, dtype)[0]
+            counts = [1, P - 1, P + 1] + ([n_main] if d == 16 and dtype == torch.float32
+                                          else [])
+            worst = 0.0
+            for N in counts:
+                q = torch.as_tensor(np.random.default_rng(N).uniform(-2, 2, (N, d)),
+                                    dtype=dtype, device=dev)
+                c, J = arm_fk_spheres_cuda(*ops, q)
+                c_ref, J_ref = fk_spheres_torch(*ref_ops, q.double())
+                err = max(float((c.double() - c_ref).abs().max()),
+                          float((J.double() - J_ref).abs().max()))
+                if not err <= tol:
+                    raise AssertionError(f"K2 chain d={d} S={S} N={N} {dtype}: "
+                                         f"max|d| {err} > {tol}")
+                worst = max(worst, err)
+            log(f"K2 chain d={d} S={S} {dtype} tile P={P}, N in {counts}: max|d|={worst:.3e}")
 
 
 def _cell_coords(pts, sdf):
@@ -789,6 +874,9 @@ def main():
                      "profile_dma9.py:78)",
          "launches": launches["sdf_lookup"], **k3},
     ]
+    log("recorded times, not measured in this run: "
+        + ", ".join(f"{name} {ms} ms" for name, ms in RECORDED_PREV_MS.items())
+        + " before the current designs (PERF.md's kernel table)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

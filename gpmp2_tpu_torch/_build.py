@@ -33,12 +33,17 @@ _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of csrc/*.cu; every launcher returns a cudaError_t as int
 _SIGNATURES = {
     # D, U, b, lam, x, G, B, n, m, scale, f64, stream
     "gpmp2_btsolve": [_P] * 6 + [_I] * 5 + [_P],
+    # m, f64, out {threads, shared bytes}
+    "gpmp2_btsolve_plan": [_I, _I, _IP],
     # q, consts, base, scent, link_ids, centers, J, N, d, S, f64, stream
     "gpmp2_fk_arm": [_P] * 7 + [_I] * 4 + [_P],
+    # d, S, f64, out {configurations per block, threads, shared bytes}
+    "gpmp2_fk_arm_plan": [_I, _I, _I, _IP],
     # pts, stride, table, origin, cell, out, ok, N, queries_per_world, nz,
     # rows, cols, dim, packed, f64, stream
     "gpmp2_sdf_lookup": [_P, _I] + [_P] * 5 + [_L] * 2 + [_I] * 6 + [_P],

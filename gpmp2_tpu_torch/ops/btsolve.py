@@ -26,7 +26,7 @@ import torch
 from .. import _build
 
 __all__ = ["block_tridiag_solve_torch", "block_tridiag_solve_cuda",
-           "batched_block_tridiag_solve", "MAX_BLOCK"]
+           "batched_block_tridiag_solve", "launch_plan", "MAX_BLOCK"]
 
 MAX_BLOCK = 34  # largest block size m = 2 * dof the kernel is built for
 
@@ -65,6 +65,16 @@ def block_tridiag_solve_torch(D, U, b, jacobi_scaling: bool = True, lam=None):
     if jacobi_scaling:
         x = x * s
     return x
+
+
+def launch_plan(m: int, dtype) -> tuple[int, int]:
+    """(threads, shared-memory bytes) of one K1 block at block size m, from
+    the kernel's own plan (csrc/btsolve.cu bt_plan). Needs the built
+    library; raises ValueError for an m the kernel is not built for."""
+    out = (ctypes.c_int * 2)()
+    if _build.kernels_lib().gpmp2_btsolve_plan(m, int(dtype == torch.float64), out):
+        raise ValueError(f"block size m={m} must be even and in [2, {MAX_BLOCK}]")
+    return out[0], out[1]
 
 
 def block_tridiag_solve_cuda(D, U, b, jacobi_scaling: bool = True, lam=None):

@@ -21,9 +21,10 @@ from .. import _build
 from ..kinematics.fk import ArmFK
 
 __all__ = ["structure_arrays", "fk_spheres_torch", "arm_fk_spheres_cuda",
-           "arm_fk_spheres_batched", "MAX_DOF"]
+           "arm_fk_spheres_batched", "launch_plan", "MAX_DOF"]
 
-MAX_DOF = 16  # frames the kernel keeps per thread (csrc/fk_arm.cu kMaxDof)
+MAX_DOF = 16  # largest dof the kernel is built for (csrc/fk_arm.cu kMaxDof)
+_CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 def structure_arrays(model, dtype, device):
@@ -80,6 +81,19 @@ def fk_spheres_torch(consts, base, scent, link_ids, qflat):
     return centers, J
 
 
+def launch_plan(d: int, S: int, dtype) -> tuple[int, int, int]:
+    """(configurations per block, threads, shared-memory bytes) of one K2
+    block, from the kernel's own plan (csrc/fk_arm.cu fk_plan), for the
+    tests; the launcher computes the same plan itself. Needs the built
+    library; raises ValueError where no tile of configurations fits in
+    shared memory."""
+    out = (ctypes.c_int * 3)()
+    if _build.kernels_lib().gpmp2_fk_arm_plan(d, S, int(dtype == torch.float64), out):
+        raise ValueError(f"no K2 tile of {S} spheres at dof {d} ({dtype}) "
+                         "fits in shared memory")
+    return out[0], out[1], out[2]
+
+
 def arm_fk_spheres_cuda(consts, base, scent, link_ids, qflat):
     """Launch kernel K2 (csrc/fk_arm.cu) on CUDA tensors; same semantics as
     `fk_spheres_torch`. Raises on what the kernel does not take."""
@@ -104,6 +118,7 @@ def arm_fk_spheres_cuda(consts, base, scent, link_ids, qflat):
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # fresh allocations: 16-byte aligned, as the kernel's vector stores need
     centers = torch.empty((N, S, 3), dtype=dtype, device=device)
     J = torch.empty((N, S, 3, d), dtype=dtype, device=device)
     if N == 0:
@@ -116,6 +131,9 @@ def arm_fk_spheres_cuda(consts, base, scent, link_ids, qflat):
             scent.data_ptr(), link_ids.data_ptr(), centers.data_ptr(),
             J.data_ptr(), N, d, S, int(dtype == torch.float64),
             ctypes.c_void_p(stream))
+    if rc == _CUDA_ERROR_INVALID_VALUE:  # d is checked above: fk_plan found no tile
+        raise ValueError(f"no K2 tile of {S} spheres at dof {d} ({dtype}) "
+                         "fits in shared memory")
     _build.check(rc, "fk_arm launch")
     arm_fk_spheres_cuda.launches += 1
     return centers, J

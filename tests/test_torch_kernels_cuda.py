@@ -14,9 +14,12 @@ import torch
 
 from gpmp2_tpu_torch.ops.btsolve import (block_tridiag_solve_cuda,
                                          block_tridiag_solve_torch)
+from gpmp2_tpu_torch.ops.btsolve import launch_plan as bt_launch_plan
 from gpmp2_tpu_torch.ops.fk_arm import (arm_fk_spheres_cuda, fk_spheres_torch,
                                         structure_arrays)
+from gpmp2_tpu_torch.ops.fk_arm import launch_plan as fk_launch_plan
 from gpmp2_tpu_torch.robots import generate_arm
+from gpmp2_tpu_torch.testing import dh_chain, random_system
 
 
 @pytest.fixture
@@ -26,16 +29,6 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _random_system(B, n, m, seed):
-    rng = np.random.default_rng(seed)
-    A = rng.normal(size=(B, n, m, m))
-    D = A @ np.swapaxes(A, -1, -2) + 10 * np.eye(m)
-    U = 0.3 * rng.normal(size=(B, n - 1, m, m))
-    b = rng.normal(size=(B, n, m))
-    lam = rng.uniform(0.0, 50.0, size=(B,))
-    return D, U, b, lam
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,B,n,m,scaling", [
     (torch.float32, 2048, 11, 14, True), (torch.float32, 37, 5, 6, True),
@@ -43,7 +36,7 @@ def _random_system(B, n, m, seed):
     (torch.float64, 9, 3, 34, True)])
 def test_btsolve_kernel_matches_plain(cuda_device, dtype, B, n, m, scaling):
     D, U, b, lam = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
-                    for a in _random_system(B, n, m, seed=11))
+                    for a in random_system(B, n, m, seed=11))
     x = block_tridiag_solve_cuda(D, U, b, scaling, lam)
     x_ref = block_tridiag_solve_torch(D.double(), U.double(), b.double(),
                                       scaling, lam.double())
@@ -53,12 +46,84 @@ def test_btsolve_kernel_matches_plain(cuda_device, dtype, B, n, m, scaling):
     assert float((x.double() - x_ref).abs().max()) <= tol * float(x_ref.abs().max())
 
 
+def _check_btsolve(device, dtype, B, n, m, damped=True, scaling=True, seed=5):
+    D, U, b, lam = (torch.as_tensor(a, dtype=dtype, device=device)
+                    for a in random_system(B, n, m, seed, damped, conditioned=True))
+    x = block_tridiag_solve_cuda(D, U, b, scaling, lam)
+    x_ref = block_tridiag_solve_torch(D.double(), U.double(), b.double(),
+                                      scaling, lam.double())
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert x.shape == (B, n, m)
+    assert float((x.double() - x_ref).abs().max()) <= tol * float(x_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m", [(torch.float32, m) for m in range(2, 35, 2)]
+                         + [(torch.float64, m) for m in (4, 6, 14, 34)])
+def test_btsolve_kernel_every_block_size(cuda_device, dtype, m):
+    _check_btsolve(cuda_device, dtype, 33, 11, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 11, 101])
+@pytest.mark.parametrize("B", [1, 33, 2048])
+def test_btsolve_kernel_batch_and_length(cuda_device, B, n):
+    _check_btsolve(cuda_device, torch.float32, B, n, 14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("damped,scaling", [(False, True), (True, False), (False, False)])
+def test_btsolve_kernel_gn_and_unscaled(cuda_device, dtype, damped, scaling):
+    """lambda = 0 (the GN path) and Jacobi scaling off."""
+    _check_btsolve(cuda_device, dtype, 65, 11, 14, damped, scaling)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m", [(torch.float32, 14), (torch.float64, 34)])
+def test_btsolve_kernel_indefinite_lane(cuda_device, dtype, m):
+    """An indefinite block on one lane makes that lane's x non-finite and
+    leaves every other lane as the plain version has it."""
+    B, n, bad = 33, 11, 7
+    D, U, b, lam = random_system(B, n, m, seed=9, conditioned=True)
+    # a 2 x 2 minor with off-diagonal 3 sqrt(d0 d1): a negative pivot even
+    # after damping and scaling
+    d0, d1 = D[bad, 5, 0, 0] + lam[bad], D[bad, 5, 1, 1] + lam[bad]
+    D[bad, 5, 0, 1] = D[bad, 5, 1, 0] = 3 * np.sqrt(d0 * d1)
+    D, U, b, lam = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+                    for a in (D, U, b, lam))
+    x = block_tridiag_solve_cuda(D, U, b, True, lam)
+    x_ref = block_tridiag_solve_torch(D.double(), U.double(), b.double(), True,
+                                      lam.double())
+    assert not bool(torch.isfinite(x[bad]).any())
+    assert not bool(torch.isfinite(x_ref[bad]).any())
+    good = torch.arange(B, device=cuda_device) != bad
+    xg, rg = x[good].double(), x_ref[good]
+    assert bool(torch.isfinite(xg).all())
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((xg - rg).abs().max()) <= tol * float(rg.abs().max())
+
+
 @pytest.mark.cuda
 def test_btsolve_kernel_rejects_odd_block(cuda_device):
     D, U, b, lam = (torch.as_tensor(a, device=cuda_device)
-                    for a in _random_system(4, 3, 5, seed=1))
+                    for a in random_system(4, 3, 5, seed=1))
     with pytest.raises(ValueError):
         block_tridiag_solve_cuda(D, U, b, True, lam)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_btsolve_launch_plan_fits(cuda_device, dtype):
+    """Every block size the kernel takes gets a block within the card's
+    limits (1024 threads, 227 KB of shared memory); others are refused."""
+    for m in range(2, 35, 2):
+        threads, smem = bt_launch_plan(m, dtype)
+        assert threads % 32 == 0 and 32 <= threads <= 1024
+        assert 0 < smem <= 232448
+    for m in (0, 3, 36):
+        with pytest.raises(ValueError):
+            bt_launch_plan(m, dtype)
 
 
 @pytest.mark.cuda
@@ -74,6 +139,56 @@ def test_fk_arm_kernel_matches_plain(cuda_device, dtype, N):
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((c.double() - c_ref).abs().max()) <= tol
     assert float((J.double() - J_ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S", [1, 13, 16])
+@pytest.mark.parametrize("d", [1, 3, 7, 16])
+@pytest.mark.parametrize("N", ["1", "P-1", "P+1", "206848"])
+def test_fk_arm_kernel_chain_shapes(cuda_device, N, d, S, dtype):
+    """Tile edges (one configuration, one short of a tile, one over) and
+    the main-path count, over dof, sphere count and dtype; the plain
+    version runs in float64 on the same rounded operands."""
+    P = fk_launch_plan(d, S, dtype)[0]
+    N = {"1": 1, "P-1": P - 1, "P+1": P + 1, "206848": 206848}[N]
+    consts, base, scent, link_ids = dh_chain(d, S, seed=d * 100 + S)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device)  # noqa: E731
+    ops = (f(consts), f(base), f(scent),
+           torch.as_tensor(link_ids, dtype=torch.int32, device=cuda_device))
+    q = f(np.random.default_rng(N).uniform(-2, 2, (N, d)))
+    c, J = arm_fk_spheres_cuda(*ops, q)
+    c_ref, J_ref = fk_spheres_torch(*(t.double() if t.is_floating_point() else t
+                                      for t in ops), q.double())
+    assert c.shape == (N, S, 3) and J.shape == (N, S, 3, d)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((c.double() - c_ref).abs().max()) <= tol
+    assert float((J.double() - J_ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fk_arm_launch_plan_fits(cuda_device, dtype):
+    """Every (d, S) the kernel takes gets a tile of whole 16-byte vectors
+    within the card's limits; a sphere table too large for one tile, and a
+    dof above 16, are refused by the plan and by the wrapper."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    for d in range(1, 17):
+        for S in (0, 1, 13, 16, 64, 256, 1024):
+            P, threads, smem = fk_launch_plan(d, S, dtype)
+            assert P >= vec and P % vec == 0
+            assert 32 <= threads <= 1024 and 0 < smem <= 232448
+    with pytest.raises(ValueError):
+        fk_launch_plan(17, 16, dtype)
+    S = 20000
+    with pytest.raises(ValueError):
+        fk_launch_plan(7, S, dtype)
+    consts, base, scent, link_ids = dh_chain(7, S, seed=1)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device)  # noqa: E731
+    with pytest.raises(ValueError):
+        arm_fk_spheres_cuda(f(consts), f(base), f(scent),
+                            torch.as_tensor(link_ids, dtype=torch.int32,
+                                            device=cuda_device), f(np.zeros((4, 7))))
 
 
 def _lookup_case(dim, worlds, n, dtype, device, seed=3):
