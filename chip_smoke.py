@@ -25,23 +25,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    rejection-sampled collision-free endpoints (numpy seed 0), LM with
    max_iter 50 and rel_thresh 1e-2 in float32, best of 3 after a warm-up;
    K1, K2 and K3 must each launch during the solve;
-7. agreement with a reference on a small input: four of those problems in
-   float64 on the card (kernels, raw field) and on the CPU (plain versions);
+7. agreement with a reference on a small input, in float64 on the card
+   (kernels, raw field) and on the CPU (plain versions): four of those
+   problems under LM, the same four under Dogleg, and four MobileBaseSE2
+   problems (MobileMap1, vehicle dynamics) under LM;
 8. the bench_suite.py paths through the port's entry points, at that
    script's batch sizes and draws (numpy seeds 0 and 1, drawn in its
-   order, MobileBaseSE2's draws included): PointRobot2D (B = 16384),
-   Arm3Limits2D (B = 8192), WAM7_3D (B = 2048) and MultiWorld2D
-   (B = 8192), LM in float32, best of 3 after a warm-up, plus the oracle's
-   512-problem sets solved with the float64 rescue on. Each config's
-   q512 converged fraction must reach the oracle's, and its q512
-   collision-free fraction must lie within 0.02 of the oracle's
-   (BASELINE_MEASURED_SUITE.json); K1 and K3 must launch in every config,
-   K2 in the arm configs.
+   order): PointRobot2D (B = 16384), MobileBaseSE2 (B = 4096; SE(2)
+   states, the Lie GP prior, vehicle dynamics sigma 0.001), Arm3Limits2D
+   (B = 8192), WAM7_3D (B = 2048) and MultiWorld2D (B = 8192), LM in
+   float32, best of 3 after a warm-up, plus the oracle's 512-problem sets
+   solved with the float64 rescue on. Each config's q512 converged
+   fraction must reach the oracle's, and its q512 collision-free fraction
+   must lie within 0.02 of the oracle's (BASELINE_MEASURED_SUITE.json); K1
+   and K3 must launch in every config, K2 in the arm configs;
+9. Dogleg (the reference's default optimizer) on the main path's B = 2048
+   WAM set in float32, best of 3 after a warm-up: K1, K2 and K3 must
+   launch and every lane's final trajectory must be finite; its quality
+   fractions are printed, not gated.
 
 It prints one informational JSON line of main-path metrics, one per suite
-config, a line of K1's and K2's recorded times before their current
-designs (not measured in the run), the kernels' JSON line, and last
-`{"ok": true, "device": {...}}`.
+config, one for the Dogleg phase, a line of K1's and K2's recorded times
+before their current designs (not measured in the run), the kernels' JSON
+line, and last `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
 """
@@ -115,6 +121,9 @@ def check_btsolve(dev):
         ("f64", f64, 64, 11, 14, True, True, 1e-10),
         ("f64_m4", f64, 256, 11, 4, True, True, 1e-10),
         ("f64_m6", f64, 256, 11, 6, True, True, 1e-10),
+        # MobileBaseSE2 (B = 4096, n = 16, m = 6) and Dogleg's GN point
+        ("mobile", f32, 4096, 16, 6, True, True, 1e-4),
+        ("mobile_lambda0", f32, 4096, 16, 6, False, True, 1e-4),
     ]
     # the warp-per-problem edges, on systems conditioned alike at every m:
     # the smallest and largest block, one and two blocks, a long chain, a
@@ -154,6 +163,12 @@ def check_btsolve(dev):
     ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 50)
     D1, U1, b1, lam1 = (t[:1].contiguous() for t in (D, U, b, lam))
     ms_b1 = cuda_ms(lambda: block_tridiag_solve_cuda(D1, U1, b1, True, lam1), 50)
+    # MobileBaseSE2's shape with lambda = 0, as Dogleg's Gauss-Newton point
+    Dm, Um, bm, lm = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in random_system(4096, 16, 6, seed=2, damped=False))
+    ms_m6 = cuda_ms(lambda: block_tridiag_solve_cuda(Dm, Um, bm, True, lm), 50)
+    m6_bound, m6_by = bound(4 * (Dm.numel() + Um.numel() + 2 * bm.numel() + lm.numel()),
+                            4096 * 16 * (6**3 / 3 + 4 * 36 * 7 + 2 * 36))
     plain_ms = cuda_ms(lambda: block_tridiag_solve_torch(D, U, b, True, lam), 10)
     # the same damped systems, dense (B, n m, n m), for one library call
     H = torch.zeros((B, n, m, n, m), dtype=torch.float32, device=dev)
@@ -173,10 +188,11 @@ def check_btsolve(dev):
     bound_ms, bound_by = bound(nbytes, B * n * (m**3 / 3 + 4 * m * m * (m + 1) + 2 * m * m))
     log(f"K1 time at B={B} n={n} m={m} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.linalg.solve dense {library_ms:.4f} ms (max|dx| vs K1 {lib_err:.2e}), "
-        f"bound {bound_ms:.4f} ms ({bound_by}); kernel at B=1 {ms_b1:.4f} ms")
+        f"bound {bound_ms:.4f} ms ({bound_by}); kernel at B=1 {ms_b1:.4f} ms; at "
+        f"B=4096 n=16 m=6 lambda=0 {ms_m6:.4f} ms (bound {m6_bound:.4f} ms, {m6_by})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "ms_b1": ms_b1}
+            "ms_b1": ms_b1, "ms_m6_b4096": ms_m6}
 
 
 def check_btsolve_indefinite_lane(dev):
@@ -381,6 +397,17 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
     run("OneObstacle packed f32", planar, pts2, True)
     run("OneObstacle raw f64", planar.to(dtype=f64), pts2.double(), False)
 
+    # MobileBaseSE2: B = 4096, 16 support + 45 interpolated states, 1 sphere,
+    # on MobileMap1 (a constant field: its obstacles lie outside its grid)
+    dsm = generate_2d_dataset("MobileMap1")
+    mobile = pack_planar_sdf(planar_sdf_from_occupancy(dsm.origin, dsm.cell_size, dsm.map,
+                                                       device=dev))
+    ext_m = np.array([dsm.cols, dsm.rows]) * dsm.cell_size
+    ptsm = torch.as_tensor(dsm.origin + rng.uniform(-0.1, 1.1, (4096 * 61, 2)) * ext_m,
+                           dtype=f32, device=dev)
+    run("MobileMap1 packed f32", mobile, ptsm, True)
+    run("MobileMap1 raw f64", mobile.to(dtype=f64), ptsm.double(), False)
+
     # MultiWorld2D: 8192 worlds of 64^2, 33 collision states each
     n, Bw, qpw = 64, 8192, 33
     ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
@@ -544,12 +571,15 @@ def read_launches():
             "sdf_lookup": sdf_lookup_cuda.launches}
 
 
-def main_path(dev, card, inputs):
+def path_solver(inputs, params):
+    """solve(b): the first b main-path problems built through the entry
+    points (on the SDF packed once), planned from the straight line with
+    `params`, and their collision costs, ending in a synchronize."""
     import torch
     from gpmp2_tpu_torch.planner import (collision_cost, init_traj_straight_line,
                                          make_problem, plan_batch)
 
-    robot, sdf, setting, params, starts, goals = inputs
+    robot, sdf, setting, _, starts, goals = inputs
     zeros = torch.zeros_like(starts)
     # make_problem packs the field under its budget; pack it once here so
     # that the timed solves reuse the table
@@ -567,7 +597,13 @@ def main_path(dev, card, inputs):
         cc = collision_cost(probs, res.traj.pose)
         torch.cuda.synchronize()
         return res, cc
+    return solve
 
+
+def main_path(dev, card, inputs):
+    import torch
+
+    solve = path_solver(inputs, inputs[3])
     solve(B_MAIN)  # warm-up
     times = []
     for _ in range(REPEATS):
@@ -622,54 +658,109 @@ def main_path(dev, card, inputs):
     return launches
 
 
-def reference_agreement(dev, inputs):
-    """Four main-path problems in float64: the card (kernels) against the
-    CPU (plain versions), on identical inputs and the raw field."""
+def _card_vs_cpu(dev, name, build, params):
+    """build(where) -> (problems, initial trajectory) in float64 on `where`:
+    the linearize of the initial trajectory and the plan, on the card
+    (kernels) against the CPU (plain versions), on identical inputs."""
     import torch
-    from gpmp2_tpu_torch.planner import (init_traj_straight_line, make_problem,
-                                         plan_batch, traj_linearize)
-    from gpmp2_tpu_torch.robots import generate_arm
+    from gpmp2_tpu_torch.planner import plan_batch, traj_linearize
+
+    out = []
+    for where in (dev, torch.device("cpu")):
+        probs, init = build(where)
+        lin = [t.cpu() for t in traj_linearize(probs, init)]
+        res = plan_batch(probs, init, params)
+        out.append((lin, res.error.cpu(), res.converged.cpu()))
+    (lin_c, err_c, conv_c), (lin_p, err_p, conv_p) = out
+    for part, a, b in zip(("H_diag", "H_off", "b", "err"), lin_c, lin_p):
+        d = float((a - b).abs().max())
+        if not d <= 1e-9 * float(b.abs().max()):
+            raise AssertionError(f"{name}: linearize {part}: card vs CPU max|d| {d}")
+    rel = float(((err_c - err_p).abs() / err_p.abs()).max())
+    log(f"reference {name} (f64, B={err_c.shape[0]}): linearize agrees; final error rel "
+        f"diff {rel:.3e}, converged card {conv_c.tolist()} cpu {conv_p.tolist()}")
+    if not (rel <= 1e-6 and bool((conv_c == conv_p).all())):
+        raise AssertionError(f"{name}: card and CPU plans disagree")
+
+
+def reference_agreement(dev, inputs):
+    """Float64, card against CPU: four main-path problems (raw field) under
+    LM and under Dogleg, and four MobileBaseSE2 problems under LM."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.planner import init_traj_straight_line, make_problem
+    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
+    from gpmp2_tpu_torch.robots import generate_arm, generate_mobile_base
 
     _, sdf, setting, params, starts, goals = inputs
     f64 = torch.float64
-    out = []
-    for where in (dev, torch.device("cpu")):
+
+    def wam(where):
         s = starts[:4].to(device=where, dtype=f64)
         g = goals[:4].to(device=where, dtype=f64)
         z = torch.zeros_like(s)
         probs = make_problem(generate_arm("WAMArm", dtype=f64, device=where),
                              sdf.to(dtype=f64, device=where), s, z, g, z, setting,
                              sdf_pack=False)
-        init = init_traj_straight_line(probs.space, s, g, setting.total_step,
-                                       setting.total_time)
-        lin = [t.cpu() for t in traj_linearize(probs, init)]
-        res = plan_batch(probs, init, params)
-        out.append((lin, res.error.cpu(), res.converged.cpu()))
-    (lin_c, err_c, conv_c), (lin_p, err_p, conv_p) = out
-    for name, a, b in zip(("H_diag", "H_off", "b", "err"), lin_c, lin_p):
-        d = float((a - b).abs().max())
-        if not d <= 1e-9 * float(b.abs().max()):
-            raise AssertionError(f"linearize {name}: card vs CPU max|d| {d}")
-    rel = float(((err_c - err_p).abs() / err_p.abs()).max())
-    log(f"reference (f64, B=4): linearize agrees; final error rel diff {rel:.3e}, "
-        f"converged card {conv_c.tolist()} cpu {conv_p.tolist()}")
-    if not (rel <= 1e-6 and bool((conv_c == conv_p).all())):
-        raise AssertionError("card and CPU plans disagree")
+        return probs, init_traj_straight_line(probs.space, s, g, setting.total_step,
+                                              setting.total_time)
+
+    _card_vs_cpu(dev, "WAM LM", wam, params)
+    _card_vs_cpu(dev, "WAM Dogleg", wam, dataclasses.replace(params, method="dogleg"))
+
+    ds = generate_2d_dataset("MobileMap1")
+    setting_m = mobile_setting()
+    s_m, g_m = draw_mobile(np.random.default_rng(0), 4)
+
+    def mobile(where):
+        s, g = (torch.as_tensor(x, dtype=f64, device=where) for x in (s_m, g_m))
+        z = torch.zeros_like(s)
+        probs = make_problem(
+            generate_mobile_base(dtype=f64, device=where),
+            planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=f64,
+                                      device=where),
+            s, z, g, z, setting_m, sdf_pack=False, **MOBILE_KW)
+        return probs, init_traj_straight_line(probs.space, s, g, setting_m.total_step,
+                                              setting_m.total_time)
+
+    _card_vs_cpu(dev, "MobileBaseSE2 LM", mobile, optimizer_params_from_setting(setting_m))
+
+
+# bench_suite.py's MobileBaseSE2 config: problem keywords, setting, draws
+MOBILE_KW = {"flag_vehicle_dynamics": True, "dyn_sigma": 0.001}
+
+
+def mobile_setting():
+    from gpmp2_tpu_torch.planner import TrajOptimizerSetting
+
+    return TrajOptimizerSetting(dof=3, total_step=15, total_time=15.0, cost_sigma=0.01,
+                                obs_check_inter=3, opt_type="lm", max_iter=50,
+                                rel_thresh=1e-2, Qc=np.eye(3))
+
+
+def draw_mobile(r, n):
+    """(starts, goals) as numpy (n, 3), in bench_suite.py's draw order."""
+    s = np.stack([r.uniform(-3.5, -2.5, n), r.uniform(-3.5, -2.5, n),
+                  r.uniform(-0.5, 0.5, n)], -1)
+    g = np.stack([r.uniform(2.5, 3.5, n), r.uniform(2.5, 3.5, n),
+                  r.uniform(1.0, 2.0, n)], -1)
+    return s, g
 
 
 def suite_configs(dev, wam_sdf):
     """bench_suite.py's configurations and draws, in its order: for each
     config, (name, robot, setting, (q512 sdf, starts, goals), (throughput
-    sdf, starts, goals)). numpy seed 0 draws the oracle's 512-problem sets,
-    seed 1 the throughput batches; MobileBaseSE2's draws are made and
-    dropped so that every later set is the oracle's."""
+    sdf, starts, goals), make_problem keywords). numpy seed 0 draws the
+    oracle's 512-problem sets, seed 1 the throughput batches."""
     import torch
     from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
     from gpmp2_tpu_torch.kinematics.fk import PointRobotFK
     from gpmp2_tpu_torch.kinematics.robot import make_robot_model
     from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF
     from gpmp2_tpu_torch.planner import TrajOptimizerSetting
-    from gpmp2_tpu_torch.robots import generate_arm
+    from gpmp2_tpu_torch.robots import generate_arm, generate_mobile_base
 
     f32 = torch.float32
     t = lambda x: torch.as_tensor(np.asarray(x), dtype=f32, device=dev)  # noqa: E731
@@ -689,16 +780,14 @@ def suite_configs(dev, wam_sdf):
         g = np.stack([r.uniform(1.4, 1.8, n), r.uniform(1.2, 1.8, n)], -1)
         return t(s), t(g)
     out.append(("PointRobot2D", robot, setting, (sdf2, *draw_pr(rng, Bq)),
-                (sdf2, *draw_pr(rng_t, SUITE_BATCH["PointRobot2D"]))))
+                (sdf2, *draw_pr(rng_t, SUITE_BATCH["PointRobot2D"])), {}))
 
-    def draw_mb(r, n):  # MobileBaseSE2 (a later slice): drawn, not solved
-        s = np.stack([r.uniform(-3.5, -2.5, n), r.uniform(-3.5, -2.5, n),
-                      r.uniform(-0.5, 0.5, n)], -1)
-        g = np.stack([r.uniform(2.5, 3.5, n), r.uniform(2.5, 3.5, n),
-                      r.uniform(1.0, 2.0, n)], -1)
-        return s, g
-    draw_mb(rng, Bq)
-    draw_mb(rng_t, SUITE_BATCH["MobileBaseSE2"])
+    dsm = generate_2d_dataset("MobileMap1")
+    sdfm = planar_sdf_from_occupancy(dsm.origin, dsm.cell_size, dsm.map, device=dev)
+    out.append(("MobileBaseSE2", generate_mobile_base(device=dev), mobile_setting(),
+                (sdfm, *map(t, draw_mobile(rng, Bq))),
+                (sdfm, *map(t, draw_mobile(rng_t, SUITE_BATCH["MobileBaseSE2"]))),
+                MOBILE_KW))
 
     arm3 = generate_arm("SimpleThreeLinksArm", device=dev)
     setting_a = TrajOptimizerSetting(
@@ -713,7 +802,7 @@ def suite_configs(dev, wam_sdf):
         g = np.array([np.pi / 2, 0, 0]) + 0.2 * r.normal(size=(n, 3))
         return t(s), t(g)
     out.append(("Arm3Limits2D", arm3, setting_a, (sdf2, *draw_a3(rng, Bq)),
-                (sdf2, *draw_a3(rng_t, SUITE_BATCH["Arm3Limits2D"]))))
+                (sdf2, *draw_a3(rng_t, SUITE_BATCH["Arm3Limits2D"])), {}))
 
     wam = generate_arm("WAMArm", device=dev)
     setting_w = TrajOptimizerSetting(
@@ -724,7 +813,7 @@ def suite_configs(dev, wam_sdf):
         return (t(BASE_START + 0.03 * r.normal(size=(n, 7))),
                 t(BASE_GOAL + 0.03 * r.normal(size=(n, 7))))
     out.append(("WAM7_3D", wam, setting_w, (wam_sdf, *draw_w(rng, Bq)),
-                (wam_sdf, *draw_w(rng_t, SUITE_BATCH["WAM7_3D"]))))
+                (wam_sdf, *draw_w(rng_t, SUITE_BATCH["WAM7_3D"])), {}))
 
     n = 64
     ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
@@ -742,7 +831,7 @@ def suite_configs(dev, wam_sdf):
         g = np.stack([np.full(nn, 0.9), r.uniform(-0.3, 0.3, nn)], -1)
         return sdf, t(s), t(g)
     out.append(("MultiWorld2D", pr, setting_mw, draw_mw(rng, Bq),
-                draw_mw(rng_t, SUITE_BATCH["MultiWorld2D"])))
+                draw_mw(rng_t, SUITE_BATCH["MultiWorld2D"]), {}))
     return out
 
 
@@ -758,12 +847,12 @@ def suite(dev, card, wam_sdf):
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "BASELINE_MEASURED_SUITE.json")) as fh:
         oracles = json.load(fh)["configs"]
-    for name, robot, setting, qset, tset in suite_configs(dev, wam_sdf):
+    for name, robot, setting, qset, tset, kwargs in suite_configs(dev, wam_sdf):
         params = optimizer_params_from_setting(setting)
 
         def prepare(sdf, s, g):
             z = torch.zeros_like(s)
-            probs = make_problem(robot, sdf, s, z, g, z, setting)
+            probs = make_problem(robot, sdf, s, z, g, z, setting, **kwargs)
             init = init_traj_straight_line(probs.space, s, g, setting.total_step,
                                            setting.total_time)
             return probs, init
@@ -814,6 +903,41 @@ def suite(dev, card, wam_sdf):
                                  f"the oracle's {row['oracle_q512_collision_free_frac']}")
 
 
+def dogleg_phase(card, inputs):
+    """Dogleg on the main path's B_MAIN problems, float32: best of
+    REPEATS after a warm-up; K1, K2 and K3 must launch and every lane's
+    final trajectory must be finite. Quality is printed, not gated."""
+    import dataclasses
+
+    import torch
+
+    solve = path_solver(inputs, dataclasses.replace(inputs[3], method="dogleg"))
+    solve(B_MAIN)  # warm-up
+    best = float("inf")
+    for _ in range(REPEATS):
+        reset_launches()
+        t0 = time.perf_counter()
+        res, cc = solve(B_MAIN)
+        best = min(best, time.perf_counter() - t0)
+        launches = read_launches()
+        if min(launches.values()) == 0:
+            raise AssertionError(f"Dogleg: a kernel of its path was not launched: {launches}")
+    for name, x in (("pose", res.traj.pose), ("vel", res.traj.vel)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"Dogleg: non-finite final {name}")
+    conv = (res.converged & ~res.gave_up).cpu().numpy()
+    free = (cc < 1e-4).cpu().numpy()
+    # as the main path's line: collision-free among the converged lanes
+    log(json.dumps({
+        "metric": "wam7_dogleg_main_path", "batch": B_MAIN,
+        "plans_per_s": float((conv & free).sum()) / best, "solve_time_s": best,
+        "converged_frac": float(conv.mean()), "gave_up_frac": float(res.gave_up.float().mean()),
+        "collision_free_frac": float(free[conv].mean()) if conv.any() else 0.0,
+        "mean_iters": float(res.iterations.float().mean()),
+        "launches": launches, "card": card,
+    }))
+
+
 def main():
     import torch
 
@@ -861,6 +985,10 @@ def main():
     # 8. the bench_suite paths
     suite(dev, card, sdf)
     log(f"suite done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9. Dogleg on the main path's problems
+    dogleg_phase(card, inputs)
+    log(f"Dogleg done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "btsolve", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/btsolve.cu",

@@ -1,9 +1,14 @@
-"""Gauss-Markov GP prior factor residual for vector states.
+"""Gauss-Markov GP prior factor residuals.
 
-Port of gpmp2_tpu/gp/prior.py (GaussianProcessPriorLinear.h):
-error = [x1 + dt v1 - x2, v1 - v2] with noise covariance Q(dt), and its
-constant Jacobians H1 = [[I, dt I], [0, I]], H2 = -I. Inputs carry any
-leading (batch, interval) dimensions.
+Port of gpmp2_tpu/gp/prior.py:
+  - vector states (GaussianProcessPriorLinear.h):
+        error = [x1 + dt v1 - x2, v1 - v2], with the constant Jacobians
+        H1 = [[I, dt I], [0, I]], H2 = -I;
+  - Lie states (GaussianProcessPriorLie.h:71-85):
+        error = [Log(x1^-1 x2) - dt v1, v2 - v1].
+The velocity-difference sign differs between the two, as in the
+reference. Noise covariance Q(dt) for both. Inputs carry any leading
+(batch, interval) dimensions.
 """
 
 from __future__ import annotations
@@ -17,9 +22,9 @@ __all__ = ["gp_prior_error", "gp_prior_jacobians_linear"]
 
 def gp_prior_error(space: StateSpace, x1, v1, x2, v2, delta_t):
     """Unwhitened GP prior residual, shape (..., 2d)."""
-    if not space.is_vector:
-        raise NotImplementedError("Lie-group GP priors are a later slice")
-    return torch.cat([x1 + delta_t * v1 - x2, v1 - v2], dim=-1)
+    if space.is_vector:
+        return torch.cat([x1 + delta_t * v1 - x2, v1 - v2], dim=-1)
+    return torch.cat([space.local(x1, x2) - v1 * delta_t, v2 - v1], dim=-1)
 
 
 def gp_prior_jacobians_linear(dof: int, delta_t, dtype=torch.float32,

@@ -1,5 +1,5 @@
-"""Joint and velocity limit residuals (port of the vector-space part of
-gpmp2_tpu/kinematics/factors.py:39-66).
+"""Joint and velocity limit residuals (port of gpmp2_tpu/kinematics/factors.py:39-66
+for vector and SE(2) states).
 
   - hinge / joint limit: JointLimitCost.h:16-32, JointLimitFactorVector.h:63-79
   - velocity limit:      VelocityLimitFactorVector.h:62-78
@@ -25,9 +25,9 @@ def hinge_limit_cost(p, down, up, thresh):
 
 
 def limit_mask(space: StateSpace, dtype, device=None):
-    """Joint-limit mask over the state dims: all ones on a vector space."""
-    if not space.is_vector:
-        raise NotImplementedError(f"limits on a {space.kind} space are a later slice")
+    """Joint-limit mask over the state dims: all ones on the vector and
+    SE(2) spaces (the hinge runs on the storage coordinates, as in the
+    JAX package); the SE(2) x R^n mask comes with the mobile arms."""
     return torch.ones(space.dim, dtype=dtype, device=device)
 
 

@@ -4,8 +4,9 @@ DH convention (Arm.cpp:22-27, Spong eq. 3.10):
   H_j(theta) = Rz(theta_j + bias_j) * Tz(d_j) * Tx(a_j) * Rx(alpha_j)
   link_pose[j] = base * H_0 * ... * H_j
 
-`ArmFK` and the planar `PointRobotFK` are ported; the mobile families come
-with later slices. Configurations carry any leading batch dimensions.
+`ArmFK`, the planar `PointRobotFK` and the SE(2) `Pose2MobileBaseFK` are
+ported; the mobile manipulators come with a later slice. Configurations
+carry any leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ import torch
 from ..device import resolve_device
 from ..geometry import se3
 from ..geometry.se3 import Pose3
-from ..geometry.statespace import StateSpace, VectorSpace
+from ..geometry.statespace import SE2Space, StateSpace, VectorSpace
 
-__all__ = ["ArmFK", "PointRobotFK", "link_poses", "state_space_of", "dof_of",
-           "num_links_of"]
+__all__ = ["ArmFK", "PointRobotFK", "Pose2MobileBaseFK", "link_poses", "base_pose3",
+           "state_space_of", "dof_of", "num_links_of"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +73,15 @@ class PointRobotFK:
         return self
 
 
+@dataclasses.dataclass(frozen=True)
+class Pose2MobileBaseFK:
+    """SE(2) base only (reference Pose2MobileBase.h): 3 dof, one link at
+    the base pose."""
+
+    def to(self, dtype=None, device=None) -> "Pose2MobileBaseFK":
+        return self
+
+
 def _rot_z(theta):
     c, s = torch.cos(theta), torch.sin(theta)
     z, o = torch.zeros_like(c), torch.ones_like(c)
@@ -95,14 +105,23 @@ def _dh_fixed_pose(fk: ArmFK, j: int) -> Pose3:
     return Pose3(_rot_x(fk.alpha[j]), trans)
 
 
-def link_poses(fk: ArmFK, q) -> Pose3:
+def base_pose3(pose2) -> Pose3:
+    """Lift Pose2 [x, y, theta] (..., 3) into Pose3 (mobileBaseUtils.cpp:18-31)."""
+    trans = torch.stack([pose2[..., 0], pose2[..., 1], torch.zeros_like(pose2[..., 0])], -1)
+    return Pose3(_rot_z(pose2[..., 2]), trans)
+
+
+def link_poses(fk, q) -> Pose3:
     """World link poses for configurations q (..., dof):
-    rot (..., dof, 3, 3), trans (..., dof, 3)."""
+    rot (..., links, 3, 3), trans (..., links, 3)."""
     if isinstance(fk, PointRobotFK):
         # PointRobot.cpp:15-50
         eye = torch.eye(3, dtype=q.dtype, device=q.device)
         trans = torch.stack([q[..., 0], q[..., 1], torch.zeros_like(q[..., 0])], -1)
         return Pose3(eye.expand(q.shape[:-1] + (1, 3, 3)), trans[..., None, :])
+    if isinstance(fk, Pose2MobileBaseFK):
+        b = base_pose3(q)
+        return Pose3(b.rot[..., None, :, :], b.trans[..., None, :])
     if not isinstance(fk, ArmFK):
         raise NotImplementedError(f"FK family {type(fk).__name__} is a later slice")
     rots, transs = [], []
@@ -120,12 +139,17 @@ def link_poses(fk: ArmFK, q) -> Pose3:
 def dof_of(fk) -> int:
     if isinstance(fk, (ArmFK, PointRobotFK)):
         return fk.dof
+    if isinstance(fk, Pose2MobileBaseFK):
+        return 3
     raise NotImplementedError(f"FK family {type(fk).__name__} is a later slice")
 
 
 def num_links_of(fk) -> int:
-    return 1 if isinstance(fk, PointRobotFK) else dof_of(fk)
+    return 1 if isinstance(fk, (PointRobotFK, Pose2MobileBaseFK)) else dof_of(fk)
 
 
 def state_space_of(fk) -> StateSpace:
+    """The configuration space of a robot family (its 'Pose' type)."""
+    if isinstance(fk, Pose2MobileBaseFK):
+        return SE2Space()
     return VectorSpace(dof_of(fk))

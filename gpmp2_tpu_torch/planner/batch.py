@@ -1,7 +1,7 @@
 """Batch trajectory optimization: the planner's entry points.
 
 Port of gpmp2_tpu/planner/batch.py (BatchTrajOptimizer.{h,cpp}) for
-vector-space problems: `make_problem` builds a batch of problems that
+vector-space and SE(2) problems: `make_problem` builds a batch of problems that
 share robot and weights, with one shared SDF world or one per problem;
 `plan_batch` optimizes them together; `batch_traj_optimize` does both
 from a reference-style setting. Start and goal states carry an explicit
@@ -43,9 +43,14 @@ def _maybe_pack_sdf(sdf, sdf_pack):
     return pack_planar_sdf(sdf) if isinstance(sdf, PlanarSDF) else pack_sdf(sdf)
 
 
-def _check_setting(setting: TrajOptimizerSetting, d: int):
+def _check_setting(setting: TrajOptimizerSetting, d: int, vehicle_dynamics: bool,
+                   space):
     """Constructor-time validation, mirroring the reference's factor-ctor
     throws (JointLimitFactorVector.h:52-56, VelocityLimitFactorVector.h:49-55)."""
+    if vehicle_dynamics and space.is_vector and d < 3:
+        raise ValueError(
+            "make_problem: vehicle dynamics on a vector state needs [x, y, theta, ...], "
+            f"got dof {d}")
     if setting.dof != d:
         raise ValueError(
             f"make_problem: setting.dof={setting.dof} does not match the "
@@ -71,6 +76,8 @@ def make_problem(
     end_vel,
     setting: TrajOptimizerSetting,
     *,
+    flag_vehicle_dynamics: bool = False,
+    dyn_sigma: float = 1e-3,
     dtype=None,
     device=None,
     sdf_pack=None,
@@ -84,7 +91,9 @@ def make_problem(
     size B. Robot and SDF are cast to `dtype` and moved to `device`
     (defaults: start_pose's dtype and device when it is a tensor, else
     float32 on CUDA). `sdf_pack`: True packs the SDF's corner table, False
-    leaves it unpacked, None packs when the table fits SDF_PACK_BUDGET."""
+    leaves it unpacked, None packs when the table fits SDF_PACK_BUDGET.
+    `flag_vehicle_dynamics` adds the vehicle-dynamics factor at every state,
+    with precision 1/dyn_sigma^2 (VehicleDynamics.h)."""
     if dtype is None:
         dtype = start_pose.dtype if torch.is_tensor(start_pose) else torch.float32
         if dtype not in (torch.float32, torch.float64):
@@ -94,7 +103,7 @@ def make_problem(
     f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
 
     d = robot.dof
-    _check_setting(setting, d)
+    _check_setting(setting, d, flag_vehicle_dynamics, robot.space)
     ends = {name: f(v) for name, v in (
         ("start_pose", start_pose), ("start_vel", start_vel),
         ("end_pose", end_pose), ("end_vel", end_vel))}
@@ -139,9 +148,11 @@ def make_problem(
         vel_lim=f(setting.vel_limits),
         vel_lim_thresh=f(setting.vel_limit_thresh),
         vel_lim_w=f(1.0 / setting.vel_limit_sigma**2),
+        dyn_w=f(1.0 / dyn_sigma**2),
         N=setting.total_step,
         flag_pos_limit=setting.flag_pos_limit,
         flag_vel_limit=setting.flag_vel_limit,
+        flag_vehicle_dynamics=flag_vehicle_dynamics,
     )
 
 

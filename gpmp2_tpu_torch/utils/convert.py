@@ -13,20 +13,21 @@ import torch
 
 from ..device import resolve_device
 from ..geometry.se3 import Pose3
-from ..kinematics.fk import ArmFK, PointRobotFK
+from ..kinematics.fk import ArmFK, PointRobotFK, Pose2MobileBaseFK
 from ..kinematics.robot import RobotModel, check_sphere_table
 from ..obstacle.sdf import PlanarSDF, SignedDistanceField
 from ..planner.problem import TrajProblem
 
-__all__ = ["robot_model_from_numpy", "point_robot_from_numpy", "sdf_from_numpy",
-           "planar_sdf_from_numpy", "problem_from_numpy", "PROBLEM_ARRAYS"]
+__all__ = ["robot_model_from_numpy", "point_robot_from_numpy",
+           "mobile_base_from_numpy", "sdf_from_numpy", "planar_sdf_from_numpy",
+           "problem_from_numpy", "PROBLEM_ARRAYS"]
 
 # the TrajProblem fields that problem_from_numpy takes as arrays
 PROBLEM_ARRAYS = ("dt", "Qc", "start_pose", "start_vel", "end_pose", "end_vel",
                   "pose_prior_w", "vel_prior_w", "goal_pose_w", "goal_vel_w",
                   "obs_w", "eps", "taus", "pos_lim_down", "pos_lim_up",
                   "pos_lim_thresh", "pos_lim_w", "vel_lim", "vel_lim_thresh",
-                  "vel_lim_w")
+                  "vel_lim_w", "dyn_w")
 
 
 def _converter(dtype, device):
@@ -67,6 +68,14 @@ def point_robot_from_numpy(dof, sphere_link_ids, sphere_radii, sphere_centers, *
                   sphere_centers, "point_robot_from_numpy", dtype, device)
 
 
+def mobile_base_from_numpy(sphere_link_ids, sphere_radii, sphere_centers, *,
+                           dtype=torch.float32, device=None) -> RobotModel:
+    """RobotModel of the SE(2) mobile base and its sphere table (link ids
+    (S,), radii (S,), centres (S, 3))."""
+    return _robot(Pose2MobileBaseFK(), sphere_link_ids, sphere_radii, sphere_centers,
+                  "mobile_base_from_numpy", dtype, device)
+
+
 def sdf_from_numpy(origin, cell_size, data, packed=None, *, dtype=torch.float32,
                    device=None) -> SignedDistanceField:
     """SignedDistanceField from origin (3,), cell size (), ([W,] Z, Y, X)
@@ -86,11 +95,11 @@ def planar_sdf_from_numpy(origin, cell_size, data, packed=None, *,
 
 
 def problem_from_numpy(robot: RobotModel, sdf, N: int, *, flag_pos_limit=False,
-                       flag_vel_limit=False, dtype=torch.float32, device=None,
-                       **arrays) -> TrajProblem:
+                       flag_vel_limit=False, flag_vehicle_dynamics=False,
+                       dtype=torch.float32, device=None, **arrays) -> TrajProblem:
     """TrajProblem from the port's robot and SDF, the number of intervals N,
-    the limit flags, and every array named in PROBLEM_ARRAYS (start/end
-    states (B, d))."""
+    the limit and vehicle-dynamics flags, and every array named in
+    PROBLEM_ARRAYS (start/end states (B, d))."""
     if set(arrays) != set(PROBLEM_ARRAYS):
         raise TypeError(
             f"problem_from_numpy: needs exactly {sorted(PROBLEM_ARRAYS)}, "
@@ -101,4 +110,5 @@ def problem_from_numpy(robot: RobotModel, sdf, N: int, *, flag_pos_limit=False,
                        sdf=sdf.to(dtype=dtype, device=device), N=int(N),
                        flag_pos_limit=bool(flag_pos_limit),
                        flag_vel_limit=bool(flag_vel_limit),
+                       flag_vehicle_dynamics=bool(flag_vehicle_dynamics),
                        **{k: f(v) for k, v in arrays.items()})

@@ -248,3 +248,49 @@ def test_sdf_lookup_kernel_rejects_misaligned_table(cuda_device):
     rows.copy_(sdf.packed)
     with pytest.raises(ValueError, match="16-byte"):
         sdf_lookup_cuda(pts, rows, sdf.origin, sdf.cell_size, sdf.grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_btsolve_kernel_mobile_gauss_newton(cuda_device, dtype):
+    """K1 at the MobileBaseSE2 shape (m = 6, n = 16, B = 4096) with
+    lambda = 0, as Dogleg's Gauss-Newton point solves it."""
+    _check_btsolve(cuda_device, dtype, 4096, 16, 6, damped=False)
+
+
+@pytest.mark.cuda
+def test_mobile_base_linearize_card_matches_cpu(cuda_device):
+    """One MobileBaseSE2 linearize (SE(2) states, Lie GP prior, vehicle
+    dynamics, interpolated obstacle factors on the MobileMap1 field) on the
+    card (K3 and the torch.func Jacobians) against the CPU's plain path,
+    float64, rtol 1e-9."""
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.planner import (Trajectory, TrajOptimizerSetting,
+                                         init_traj_straight_line, make_problem,
+                                         traj_linearize)
+    from gpmp2_tpu_torch.robots import generate_mobile_base
+
+    ds = generate_2d_dataset("MobileMap1")
+    setting = TrajOptimizerSetting(dof=3, total_step=15, total_time=15.0, cost_sigma=0.01,
+                                   obs_check_inter=3, opt_type="lm", Qc=np.eye(3))
+    rng = np.random.default_rng(2)
+    B = 64
+    s = np.stack([rng.uniform(-3.5, -2.5, B), rng.uniform(-3.5, -2.5, B),
+                  rng.uniform(-0.5, 0.5, B)], -1)
+    g = np.stack([rng.uniform(2.5, 3.5, B), rng.uniform(2.5, 3.5, B),
+                  rng.uniform(1.0, 2.0, B)], -1)
+    noise = rng.normal(size=(2, B, 16, 3))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sdf = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=torch.float64,
+                                        device=dev)
+        f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        z = torch.zeros(B, 3, dtype=torch.float64, device=dev)
+        probs = make_problem(generate_mobile_base(dtype=torch.float64, device=dev), sdf,
+                             f(s), z, f(g), z, setting, flag_vehicle_dynamics=True,
+                             dyn_sigma=0.001)
+        line = init_traj_straight_line(probs.space, f(s), f(g), 15, 15.0)
+        traj = Trajectory(line.pose + 0.2 * f(noise[0]), line.vel + 0.2 * f(noise[1]))
+        out.append([t.cpu() for t in traj_linearize(probs, traj)])
+    for name, a, b in zip(("H_diag", "H_off", "b", "err"), *out):
+        assert torch.allclose(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max())), name

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_main.py [--out DIR]
+    python3 tools/profile_torch_main.py [--out DIR] [--config main|mobile]
 
 Builds chip_smoke.py's main-path inputs (`main_path_inputs`: WAM 7-DOF, the
 300^3 WAMDeskDataset SDF in float32, numpy seed 0 endpoints, LM with
@@ -23,6 +23,18 @@ JSON line:
 
 The per-op table of each profiled run, sorted by self CUDA time, goes to
 DIR/profile_b{B}.txt (default DIR: build/profile). Imports no JAX.
+
+`--config mobile` profiles one MobileBaseSE2 solve instead (chip_smoke.py's
+suite config: MobileMap1, SE(2) states, vehicle dynamics, B = 4096, the
+suite's throughput draws, LM, float32) and prints the same fields plus the
+torch.func Jacobians' share: jacobian_device_ms sums the device time under
+the labelled ranges of the boundary-prior, Lie GP prior and interpolation
+Jacobians (planner/problem.py) in the profiled solve (jacobian_spans_ms:
+each range's span on the card's timeline, idle gaps included; the spans
+are left out of device_busy_ms), and jacobian_ms /
+linearize_ms are CUDA-event means of those Jacobians alone and of one
+whole `traj_linearize`, on the straight-line init. Its table goes to
+DIR/profile_mobile_b4096.txt.
 """
 
 import argparse
@@ -38,6 +50,7 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--config", choices=("main", "mobile"), default="main")
     args = ap.parse_args()
 
     import torch
@@ -63,8 +76,10 @@ def main():
     _build.kernels_lib()
 
     dev = torch.device("cuda", 0)
-    robot, sdf, setting, params, starts, goals = cs.main_path_inputs(dev)
     os.makedirs(args.out, exist_ok=True)
+    if args.config == "mobile":
+        return profile_mobile(args.out, card, dev)
+    robot, sdf, setting, params, starts, goals = cs.main_path_inputs(dev)
 
     for b in (cs.B_MAIN, 32, 1):
         z = torch.zeros_like(starts[:b])
@@ -92,21 +107,118 @@ def main():
             pwall = time.perf_counter() - t0
         k1_launches = block_tridiag_solve_cuda.launches
         ka = prof.key_averages()
-        # operator rows repeat their kernels' time, so count kernel rows only
-        kernels = [e for e in ka if e.device_type.name == "CUDA"
-                   and e.self_device_time_total > 0]
         print(json.dumps({
             "B": b, "card": card,
             "linearize_ms": linearize_ms, "solve_ms": solve_ms,
             "plan_wall_ms": wall * 1e3, "profiled_wall_ms": pwall * 1e3,
-            "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
-            "kernel_events": sum(e.count for e in kernels),
+            **device_busy(ka),
             "max_iterations": int(res.iterations.max()), "k1_launches": k1_launches,
         }), flush=True)
         table = ka.table(sort_by="self_cuda_time_total", row_limit=25)
         with open(os.path.join(args.out, f"profile_b{b}.txt"), "w") as fh:
             fh.write(card + "\n" + table)
         print("\n".join(table.splitlines()[: 30 if b == cs.B_MAIN else 14]), flush=True)
+    return 0
+
+
+def device_busy(ka):
+    """Summed device time and count of the CUDA kernel events of a
+    profile's key averages (operator rows repeat their kernels' time, so
+    kernel rows only)."""
+    kernels = [e for e in ka if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return {"device_busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "kernel_events": sum(e.count for e in kernels)}
+
+
+JACOBIANS = ("_prior_pose_jacobian", "_lie_gp_jacobians", "_interp_pose_jacobians")
+
+
+def profile_mobile(out, card, dev):
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke as cs
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
+    from gpmp2_tpu_torch.planner import (init_traj_straight_line, make_problem, plan_batch,
+                                         traj_linearize)
+    from gpmp2_tpu_torch.planner import problem as problem_mod
+    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
+    from gpmp2_tpu_torch.robots import generate_mobile_base
+
+    B = cs.SUITE_BATCH["MobileBaseSE2"]
+    ds = generate_2d_dataset("MobileMap1")
+    sdf = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, device=dev)
+    setting = cs.mobile_setting()
+    params = optimizer_params_from_setting(setting)
+    # the suite's throughput draws: numpy seed 1 after PointRobot2D's four
+    # uniform draws of its batch
+    rng = np.random.default_rng(1)
+    rng.uniform(size=4 * cs.SUITE_BATCH["PointRobot2D"])
+    s, g = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in cs.draw_mobile(rng, B))
+    z = torch.zeros_like(s)
+    probs = make_problem(generate_mobile_base(device=dev), sdf, s, z, g, z, setting,
+                         **cs.MOBILE_KW)
+    init = init_traj_straight_line(probs.space, s, g, setting.total_step, setting.total_time)
+    plan_batch(probs, init, params)  # warm-up
+    torch.cuda.synchronize()
+
+    pose, vel = init
+    n, T = pose.shape[1], probs.taus.shape[0]
+    pt0 = problem_mod._collision_confs(probs, pose, vel)[:, n:].reshape(B, n - 1, T, 3)
+
+    def jacobians():
+        problem_mod._prior_pose_jacobian(probs.space, probs.start_pose, pose[:, 0])
+        problem_mod._prior_pose_jacobian(probs.space, probs.end_pose, pose[:, -1])
+        problem_mod._lie_gp_jacobians(probs, pose, vel)
+        problem_mod._interp_pose_jacobians(probs, pose, vel, pt0)
+
+    linearize_ms = cs.cuda_ms(lambda: traj_linearize(probs, init), 10)
+    jacobian_ms = cs.cuda_ms(jacobians, 10)
+
+    # label the Jacobian helpers for the profiled solve
+    originals = {name: getattr(problem_mod, name) for name in JACOBIANS}
+
+    def labelled(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    for name, fn in originals.items():
+        setattr(problem_mod, name, labelled(name, fn))
+    block_tridiag_solve_cuda.launches = 0
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = plan_batch(probs, init, params)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(problem_mod, name, fn)
+    ka = prof.key_averages()
+    # a labelled range has a host row (its kernels' device time) and a
+    # device row (its span on the card's timeline, gaps included)
+    ranges = {e.key: e.device_time_total / 1e3 for e in ka
+              if e.key in JACOBIANS and e.device_type.name == "CPU"}
+    spans = {e.key: e.self_device_time_total / 1e3 for e in ka
+             if e.key in JACOBIANS and e.device_type.name == "CUDA"}
+    print(json.dumps({
+        "config": "MobileBaseSE2", "B": B, "card": card,
+        "linearize_ms": linearize_ms, "jacobian_ms": jacobian_ms,
+        "profiled_wall_ms": pwall * 1e3,
+        **device_busy([e for e in ka if e.key not in JACOBIANS]),
+        "jacobian_device_ms": sum(ranges.values()), "jacobian_ranges_ms": ranges,
+        "jacobian_spans_ms": spans,
+        "max_iterations": int(res.iterations.max()),
+        "k1_launches": block_tridiag_solve_cuda.launches,
+    }), flush=True)
+    table = ka.table(sort_by="self_cuda_time_total", row_limit=30)
+    with open(os.path.join(out, f"profile_mobile_b{B}.txt"), "w") as fh:
+        fh.write(card + "\n" + table)
+    print("\n".join(table.splitlines()[:34]), flush=True)
     return 0
 
 
