@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the device, and nvidia-smi's name and power limit;
 2. build the CUDA kernels from gpmp2_tpu_torch/csrc (timed);
 3. kernel K1 (block-tridiagonal solve) against its plain PyTorch version,
-   which runs in float64 on the float32-rounded inputs, at the main shape
-   and the warp-per-problem edges (m = 2 and 34, n = 1, 2 and 101, B = 1,
-   lambda = 0, scaling off, one lane with an indefinite block); timed at
+   which runs in float64 on the float32-rounded inputs, at the main,
+   MobileBaseSE2 and SimpleTwoLinksArm shapes and the warp-per-problem
+   edges (m = 2 and 34, n = 1, 2 and 101, B = 1, lambda = 0, scaling off,
+   one lane with an indefinite block); timed at
    B = 2048 and B = 1; torch.linalg.solve on the same damped systems
    assembled dense is timed beside it;
 4. kernel K2 (arm FK + sphere Jacobians) against its plain version, on
@@ -42,12 +43,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. Dogleg (the reference's default optimizer) on the main path's B = 2048
    WAM set in float32, best of 3 after a warm-up: K1, K2 and K3 must
    launch and every lane's final trajectory must be finite; its quality
-   fractions are printed, not gated.
+   fractions are printed, not gated;
+10. the mobile manipulators: K1 at the PR2's block size m = 36 (B = 2048,
+   n = 11) in float32 and float64, damped and lambda = 0, against its
+   plain version, timed with its bound; K3 against its plain version at
+   the queries of the PR2 and SimpleTwoLinksArm rows (packed float32 and
+   raw float64); the PR2 (SE(2) x R^15 states, 18 dof, 65 spheres, a
+   torso lift and two 7-DOF arms) on the main path's 300^3 field, packed,
+   with 324 self-collision pairs and vehicle dynamics, B = 2048 rejection-sampled endpoints (numpy seed 0), LM in
+   float32, best of 3 after a warm-up (K1 and K3 must launch and every
+   final trajectory must be finite; quality is printed, not gated: no
+   oracle exists for the PR2); SimpleTwoLinksArm on the world and graph of
+   tests/fixtures/oracle_replan_mobilearm.npz, whose float64 cold solve on
+   the card must end within 1% of the oracle's cost, and a B = 4096
+   float32 throughput line on that world; and four PR2 problems (a
+   workspace pose slot, the self-collision pairs), and the same four with
+   the end-effector goal, in float64 on the card against the CPU. The
+   mobile FK is plain torch, so K2 launches 0 times in this phase.
 
 It prints one informational JSON line of main-path metrics, one per suite
-config, one for the Dogleg phase, a line of K1's and K2's recorded times
-before their current designs (not measured in the run), the kernels' JSON
-line, and last `{"ok": true, "device": {...}}`.
+config, one for the Dogleg phase, one per mobile-manipulator row, a line
+of K1's and K2's recorded times before their current designs (not
+measured in the run), the kernels' JSON line (K1's entry with its m = 36
+times), and last `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
 """
@@ -124,6 +142,9 @@ def check_btsolve(dev):
         # MobileBaseSE2 (B = 4096, n = 16, m = 6) and Dogleg's GN point
         ("mobile", f32, 4096, 16, 6, True, True, 1e-4),
         ("mobile_lambda0", f32, 4096, 16, 6, False, True, 1e-4),
+        # SimpleTwoLinksArm's row (B = 4096, n = 11, m = 10)
+        ("two_links", f32, 4096, 11, 10, True, True, 1e-4),
+        ("two_links_lambda0", f32, 4096, 11, 10, False, True, 1e-4),
     ]
     # the warp-per-problem edges, on systems conditioned alike at every m:
     # the smallest and largest block, one and two blocks, a long chain, a
@@ -342,12 +363,45 @@ def _compare_lookup(name, got, ref, near, tol):
     return worst
 
 
+def _lookup_operands(sdf, packed):
+    """K3's table, origin, cell size and grid of a field: its packed rows
+    or its raw samples."""
+    t = sdf.packed.reshape(-1, 2 ** sdf.DIM) if packed else sdf.data.reshape(-1)
+    return t, sdf.origin, sdf.cell_size, sdf.grid
+
+
+def check_lookup(name, sdf, pts, packed, qpw=0):
+    """K3 on `pts` (N, >= dim) against its plain version in float64 on the
+    same rounded inputs (relative tolerance 1e-4 in float32: the cell
+    coordinate carries a float32 rounding of ~2e-5 cells, which moves the
+    gradient weights; 1e-12 in float64), and a float32 kernel also against
+    the plain version in float32 on every query (1e-5: the same cells,
+    other rounding). Returns the largest difference."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    tol = 1e-4 if pts.dtype == torch.float32 else 1e-12
+    got = sdf_lookup_cuda(pts, *_lookup_operands(sdf, packed), qpw)
+    torch.cuda.synchronize()
+    s64 = (sdf if packed else dataclasses.replace(sdf, packed=None)).to(dtype=torch.float64)
+    ref = sdf_lookup_torch(pts.double(), *_lookup_operands(s64, packed), qpw)
+    if pts.dtype == torch.float32:
+        c = _cell_coords(pts.double(), sdf)
+        near = ((c - c.round()).abs() < 1e-4).any(-1)
+        # and every query against the plain version in float32, which
+        # picks the same cells: only FMA contraction differs
+        same = sdf_lookup_torch(pts, *_lookup_operands(sdf, packed), qpw)
+        _compare_lookup(name + " (plain f32)", got, same, torch.zeros_like(near), 1e-5)
+    else:
+        near = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+    return _compare_lookup(name, got, ref, near, tol)
+
+
 def check_sdf_lookup(dev, wam_sdf, wam_pts):
-    """K3 against its plain version in float64 on the same rounded inputs
-    (relative tolerance 1e-4 in float32: the cell coordinate carries a
-    float32 rounding of ~2e-5 cells, which moves the gradient weights;
-    1e-12 in float64), and a float32 kernel also against the plain version
-    in float32 on every query (1e-5: the same cells, other rounding)."""
+    """K3 against its plain version (check_lookup) at the main path's, the
+    suite's and the edges' queries; timed at the main path's."""
     import dataclasses
 
     import torch
@@ -355,35 +409,13 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
     from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF, pack_planar_sdf, pack_sdf
     from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
 
-    def operands(sdf, packed):
-        t = sdf.packed.reshape(-1, 2 ** sdf.DIM) if packed else sdf.data.reshape(-1)
-        return t, sdf.origin, sdf.cell_size, sdf.grid
-
-    def run(name, sdf, pts, packed, qpw=0):
-        tol = 1e-4 if pts.dtype == torch.float32 else 1e-12
-        got = sdf_lookup_cuda(pts, *operands(sdf, packed), qpw)
-        torch.cuda.synchronize()
-        s64 = (sdf if packed else dataclasses.replace(sdf, packed=None)).to(dtype=f64)
-        ref = sdf_lookup_torch(pts.double(), *operands(s64, packed), qpw)
-        if pts.dtype == torch.float32:
-            c = _cell_coords(pts.double(), sdf)
-            near = ((c - c.round()).abs() < 1e-4).any(-1)
-            # and every query against the plain version in float32, which
-            # picks the same cells: only FMA contraction differs
-            same = sdf_lookup_torch(pts, *operands(sdf, packed), qpw)
-            _compare_lookup(name + " (plain f32)", got, same,
-                            torch.zeros_like(near), 1e-5)
-        else:
-            near = torch.zeros(pts.shape[0], dtype=torch.bool, device=dev)
-        return _compare_lookup(name, got, ref, near, tol)
-
     f32, f64 = torch.float32, torch.float64
     wam_packed = pack_sdf(wam_sdf)
-    main_err = run("WAM packed f32", wam_packed, wam_pts, True)
-    run("WAM raw f32", wam_packed, wam_pts, False)
+    main_err = check_lookup("WAM packed f32", wam_packed, wam_pts, True)
+    check_lookup("WAM raw f32", wam_packed, wam_pts, False)
     wam64 = pack_sdf(wam_sdf.to(dtype=f64))
-    run("WAM packed f64", wam64, wam_pts.double(), True)
-    run("WAM raw f64", wam64, wam_pts.double(), False)
+    check_lookup("WAM packed f64", wam64, wam_pts.double(), True)
+    check_lookup("WAM raw f64", wam64, wam_pts.double(), False)
     del wam64
 
     rng = np.random.default_rng(7)
@@ -394,8 +426,8 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
     n_pr = 16384 * 61  # PointRobot2D: B = 16384, 61 collision states, 1 sphere
     pts2 = torch.as_tensor(ds.origin + rng.uniform(-0.05, 1.05, (n_pr, 2)) * ext,
                            dtype=f32, device=dev)
-    run("OneObstacle packed f32", planar, pts2, True)
-    run("OneObstacle raw f64", planar.to(dtype=f64), pts2.double(), False)
+    check_lookup("OneObstacle packed f32", planar, pts2, True)
+    check_lookup("OneObstacle raw f64", planar.to(dtype=f64), pts2.double(), False)
 
     # MobileBaseSE2: B = 4096, 16 support + 45 interpolated states, 1 sphere,
     # on MobileMap1 (a constant field: its obstacles lie outside its grid)
@@ -405,8 +437,8 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
     ext_m = np.array([dsm.cols, dsm.rows]) * dsm.cell_size
     ptsm = torch.as_tensor(dsm.origin + rng.uniform(-0.1, 1.1, (4096 * 61, 2)) * ext_m,
                            dtype=f32, device=dev)
-    run("MobileMap1 packed f32", mobile, ptsm, True)
-    run("MobileMap1 raw f64", mobile.to(dtype=f64), ptsm.double(), False)
+    check_lookup("MobileMap1 packed f32", mobile, ptsm, True)
+    check_lookup("MobileMap1 raw f64", mobile.to(dtype=f64), ptsm.double(), False)
 
     # MultiWorld2D: 8192 worlds of 64^2, 33 collision states each
     n, Bw, qpw = 64, 8192, 33
@@ -419,8 +451,8 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
         torch.tensor(3.0 / (n - 1), dtype=f32, device=dev),
         torch.as_tensor(data, dtype=f32, device=dev)))
     ptsw = torch.as_tensor(rng.uniform(-1.6, 1.6, (Bw * qpw, 2)), dtype=f32, device=dev)
-    run("MultiWorld packed f32", worlds, ptsw, True, qpw)
-    run("MultiWorld raw f64", worlds.to(dtype=f64), ptsw.double(), False, qpw)
+    check_lookup("MultiWorld packed f32", worlds, ptsw, True, qpw)
+    check_lookup("MultiWorld raw f64", worlds.to(dtype=f64), ptsw.double(), False, qpw)
 
     # edges: the low and top faces, one step outside each, and NaN, on the
     # two fields moved to a dyadic grid (origin -1, cell 1/128), where the
@@ -446,8 +478,8 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
             s = sdf.to(dtype=dtype)
             p = pts.to(dtype)
             for packed in (True, False):
-                got = sdf_lookup_cuda(p, *operands(s, packed))
-                ref = sdf_lookup_torch(p, *operands(s, packed))
+                got = sdf_lookup_cuda(p, *_lookup_operands(s, packed))
+                ref = sdf_lookup_torch(p, *_lookup_operands(s, packed))
                 want_ok = [True] * 3 + [True, False] * (2 * sdf.DIM) + [False]
                 if got[-1].tolist() != want_ok or ref[-1].tolist() != want_ok:
                     raise AssertionError(f"K3 {name} edges {dtype}: in-range mask "
@@ -459,7 +491,7 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
                     raise AssertionError(f"K3 {name} edges: NaN query gave {got[0][-1]}")
         log(f"K3 {name} edges: faces, outside and NaN agree (f32, f64, packed, raw)")
 
-    table, origin, cell, grid = operands(wam_packed, True)
+    table, origin, cell, grid = _lookup_operands(wam_packed, True)
     ms = cuda_ms(lambda: sdf_lookup_cuda(wam_pts, table, origin, cell, grid), 20)
     plain_ms = cuda_ms(lambda: sdf_lookup_torch(wam_pts, table, origin, cell, grid), 5)
     # bytes: the points read once, the distinct packed rows these queries
@@ -938,6 +970,336 @@ def dogleg_phase(card, inputs):
     }))
 
 
+# phase 10: the mobile manipulators. PR2 (18 dof, 65 spheres, two arms and
+# a torso lift) with its left forearm and gripper spheres (24-41, links 6
+# and 8) against the right's (47-64, links 13 and 15): 324 pairs, eps 0.02,
+# sigma 0.05
+B_PR2 = 2048
+PR2_PAIRS = [(a, b, 0.02, 0.05) for a in range(24, 42) for b in range(47, 65)]
+PR2_KW = {"flag_vehicle_dynamics": True, "dyn_sigma": 1e-3,
+          "self_collision_pairs": PR2_PAIRS}
+B_TWO_LINKS = 4096
+F64_FLOPS = 67e12  # FP64 on the tensor cores, H100 SXM (NVIDIA's data sheet)
+
+
+def check_btsolve_m36(dev):
+    """K1 at the PR2's block size m = 36 (B = B_PR2, n = 11), float32 and
+    float64, damped and lambda = 0, against the plain version in float64 on
+    the same rounded inputs, with check_btsolve's tolerances; the damped
+    solves are timed with their bounds."""
+    import torch
+    from gpmp2_tpu_torch.ops.btsolve import (block_tridiag_solve_cuda,
+                                             block_tridiag_solve_torch, launch_plan)
+    from gpmp2_tpu_torch.testing import random_system
+
+    B, n, m = B_PR2, 11, 36
+    out = {}
+    for dtype, tol, peak in ((torch.float32, 1e-4, F32_FLOPS), (torch.float64, 1e-10, F64_FLOPS)):
+        name = "f32" if dtype == torch.float32 else "f64"
+        for damped in (True, False):
+            D, U, b, lam = (torch.as_tensor(a, dtype=dtype, device=dev)
+                            for a in random_system(B, n, m, seed=36 + damped, damped=damped,
+                                                   conditioned=True))
+            x = block_tridiag_solve_cuda(D, U, b, True, lam)
+            torch.cuda.synchronize()
+            x_ref = block_tridiag_solve_torch(D.double(), U.double(), b.double(), True,
+                                              lam.double())
+            err, scale = float((x.double() - x_ref).abs().max()), float(x_ref.abs().max())
+            log(f"K1 m=36 {name} damped={damped}: B={B} n={n} max|dx|={err:.3e} "
+                f"max|x|={scale:.3e}")
+            if not err <= tol * scale:
+                raise AssertionError(f"K1 m=36 {name} damped={damped}: max|dx| {err} > "
+                                     f"{tol} * {scale}")
+            if damped:
+                ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 20)
+                elem = D.element_size()
+                nbytes = elem * (D.numel() + U.numel() + 2 * b.numel() + lam.numel())
+                bound_ms, bound_by = bound(
+                    nbytes, B * n * (m**3 / 3 + 4 * m * m * (m + 1) + 2 * m * m), peak)
+                threads, smem = launch_plan(m, dtype)
+                log(f"K1 time at B={B} n={n} m={m} {name}: kernel {ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}); {threads} threads, {smem} B shared "
+                    "memory per block")
+                out[f"ms_m36_{name}"] = ms
+                out[f"bound_ms_m36_{name}"] = bound_ms
+    return out
+
+
+def pr2_setting(total_step=10, inter=4):
+    from gpmp2_tpu_torch.planner import TrajOptimizerSetting
+
+    return TrajOptimizerSetting(dof=18, total_step=total_step, total_time=5.0,
+                                obs_check_inter=inter, cost_sigma=0.02, epsilon=0.05,
+                                opt_type="lm", max_iter=50, rel_thresh=1e-2, Qc=np.eye(18))
+
+
+def pr2_inputs(dev, sdf):
+    """PR2 (float32 on `dev`) and B_PR2 start and goal configurations in the
+    main path's field: numpy seed 0, rejection-sampled so that every
+    endpoint's obstacle and self-collision errors at eps 0 are zero."""
+    import torch
+    from gpmp2_tpu_torch.obstacle.factors import obstacle_factor_error, self_collision_error
+    from gpmp2_tpu_torch.robots import generate_mobile_arm
+
+    f32 = torch.float32
+    robot = generate_mobile_arm("PR2", dtype=f32, device=dev)
+    pairs = torch.as_tensor([p[:2] for p in PR2_PAIRS], device=dev)
+    no_eps = torch.zeros(len(PR2_PAIRS), dtype=f32, device=dev)
+    rng = np.random.default_rng(0)
+
+    def sample(n, x_range, lift_max):
+        out = []
+        while len(out) < n:
+            k = 2 * n
+            cand = np.concatenate([
+                rng.uniform(*x_range, (k, 1)), rng.uniform(-0.4, 0.0, (k, 1)),
+                rng.uniform(-0.3, 0.3, (k, 1)),
+                rng.uniform(0.0, lift_max, (k, 1)) if lift_max else np.zeros((k, 1)),
+                0.3 * rng.normal(size=(k, 14))], 1)
+            q = torch.as_tensor(cand, dtype=f32, device=dev)
+            err = (obstacle_factor_error(robot, sdf, q, 0.0).sum(-1)
+                   + self_collision_error(robot, q, pairs[:, 0], pairs[:, 1], no_eps).sum(-1))
+            out.extend(cand[(err < 1e-6).cpu().numpy()][: n - len(out)])
+        return torch.as_tensor(np.stack(out), dtype=f32, device=dev)
+
+    return robot, sample(B_PR2, (-1.0, -0.6), 0.0), sample(B_PR2, (-0.3, 0.0), 0.2)
+
+
+def mobile_row(metric, solve, b, card):
+    """Best of REPEATS `solve(b)` after a warm-up: the row's JSON line
+    (collision-free and self-collision-free among the converged lanes).
+    Gates: K1 and K3 launched in every timed solve, every final
+    trajectory finite."""
+    import torch
+
+    solve(b)  # warm-up
+    best = float("inf")
+    for _ in range(REPEATS):
+        reset_launches()
+        t0 = time.perf_counter()
+        res, cc, scc = solve(b)
+        best = min(best, time.perf_counter() - t0)
+        launches = read_launches()
+        if launches["btsolve"] == 0 or launches["sdf_lookup"] == 0:
+            raise AssertionError(f"{metric}: a kernel of its path was not launched: {launches}")
+    for name, x in (("pose", res.traj.pose), ("vel", res.traj.vel)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{metric}: non-finite final {name}")
+    conv = (res.converged & ~res.gave_up).cpu().numpy()
+    free = (cc < 1e-4).cpu().numpy()
+    row = {"metric": metric, "batch": b,
+           "plans_per_s": float((conv & free).sum()) / best, "solve_time_s": best,
+           "converged_frac": float(conv.mean()),
+           "gave_up_frac": float(res.gave_up.float().mean()),
+           "collision_free_frac": float(free[conv].mean()) if conv.any() else 0.0}
+    if scc is not None:
+        sfree = (scc < 1e-4).cpu().numpy()
+        row["self_collision_free_frac"] = float(sfree[conv].mean()) if conv.any() else 0.0
+    row.update({"mean_iters": float(res.iterations.float().mean()), "launches": launches,
+                "card": card})
+    log(json.dumps(row))
+
+
+def pr2_solver(robot, sdf, starts, goals, setting):
+    """solve(b): the first b PR2 problems built through the entry points on
+    the SDF packed once, planned from the straight line under LM, and
+    their obstacle and self-collision costs, ending in a synchronize."""
+    import torch
+    from gpmp2_tpu_torch.planner import (collision_cost, init_traj_straight_line,
+                                         make_problem, optimizer_params_from_setting,
+                                         plan_batch, self_collision_cost)
+
+    zeros = torch.zeros_like(starts)
+    packed = make_problem(robot, sdf, starts[:1], zeros[:1], goals[:1], zeros[:1], setting,
+                          **PR2_KW).sdf
+    if packed.packed is None:
+        raise AssertionError("make_problem did not pack the PR2's SDF")
+    params = optimizer_params_from_setting(setting)
+
+    def solve(b):
+        probs = make_problem(robot, packed, starts[:b], zeros[:b], goals[:b], zeros[:b],
+                             setting, **PR2_KW)
+        init = init_traj_straight_line(probs.space, probs.start_pose, probs.end_pose,
+                                       setting.total_step, setting.total_time)
+        res = plan_batch(probs, init, params)
+        cc = collision_cost(probs, res.traj.pose)
+        scc = self_collision_cost(probs, res.traj.pose)
+        torch.cuda.synchronize()
+        return res, cc, scc
+    return solve
+
+
+def two_links_world(dev, dtype):
+    """tests/fixtures/oracle_replan_mobilearm.npz's world and graph:
+    SimpleTwoLinksArm in a one-box 300^2 planar field, 10 intervals, no
+    interpolated states, cost_sigma 0.1, eps 0.2, LM at the fixture's
+    rel_tol."""
+    from gpmp2_tpu_torch.datasets import planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.planner import TrajOptimizerSetting
+    from gpmp2_tpu_torch.robots import generate_mobile_arm
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fx = np.load(os.path.join(here, "tests", "fixtures", "oracle_replan_mobilearm.npz"))
+    occ = np.zeros((300, 300))
+    r0, r1, c0, c1 = fx["meta_occ_box"]
+    occ[r0:r1, c0:c1] = 1.0
+    sdf = planar_sdf_from_occupancy(fx["meta_origin"], float(fx["meta_cell"]), occ,
+                                    dtype=dtype, device=dev)
+    setting = TrajOptimizerSetting(
+        dof=5, total_step=int(fx["meta_n_steps"]), total_time=float(fx["meta_total_time"]),
+        obs_check_inter=int(fx["meta_inter"]), cost_sigma=float(fx["meta_cost_sigma"]),
+        epsilon=float(fx["meta_eps"]), opt_type="lm", max_iter=100,
+        rel_thresh=float(fx["meta_rel_tol"]))
+    return fx, generate_mobile_arm("SimpleTwoLinksArm", dtype=dtype, device=dev), sdf, setting
+
+
+def two_links_draws(fx, dev):
+    """The throughput row's B_TWO_LINKS starts and goals (float32): the
+    fixture's start and goal each perturbed by 0.05 N(0, 1), numpy seed 1."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    s = torch.as_tensor(fx["meta_start"] + 0.05 * rng.normal(size=(B_TWO_LINKS, 5)),
+                        dtype=torch.float32, device=dev)
+    g = torch.as_tensor(fx["meta_goal0"] + 0.05 * rng.normal(size=(B_TWO_LINKS, 5)),
+                        dtype=torch.float32, device=dev)
+    return s, g
+
+
+def check_mobile_lookups(dev, wam_sdf, pr2):
+    """K3 against its plain version (check_lookup) at the queries of phase
+    10's two rows: the sphere centres of every collision state of the
+    straight-line init, the PR2's (B_PR2 x 51 states x 65 spheres) in the
+    main path's 300^3 field and SimpleTwoLinksArm's (B_TWO_LINKS x 11
+    states x 10 spheres) in the one-box 300^2 field, each packed in
+    float32 as its row runs it and raw in float64; K3 timed at the PR2's."""
+    import torch
+    from gpmp2_tpu_torch.kinematics.robot import sphere_centers_world
+    from gpmp2_tpu_torch.obstacle.sdf import pack_planar_sdf, pack_sdf
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+    from gpmp2_tpu_torch.planner import init_traj_straight_line, make_problem
+    from gpmp2_tpu_torch.planner.problem import _collision_confs
+
+    def queries(robot, sdf, setting, s, g, **kw):
+        z = torch.zeros_like(s)
+        probs = make_problem(robot, sdf, s, z, g, z, setting, sdf_pack=False, **kw)
+        init = init_traj_straight_line(probs.space, s, g, setting.total_step,
+                                       setting.total_time)
+        confs = _collision_confs(probs, *init)
+        return sphere_centers_world(robot, confs).reshape(-1, 3).contiguous()
+
+    robot, starts, goals = pr2
+    pts = queries(robot, wam_sdf, pr2_setting(), starts, goals, **PR2_KW)
+    packed = pack_sdf(wam_sdf)
+    check_lookup("PR2 packed f32", packed, pts, True)
+    check_lookup("PR2 raw f64", wam_sdf.to(dtype=torch.float64), pts.double(), False)
+    ms = cuda_ms(lambda: sdf_lookup_cuda(pts, *_lookup_operands(packed, True)), 20)
+    log(f"K3 time at N={pts.shape[0]} f32 packed (PR2 row): kernel {ms:.4f} ms")
+    del packed
+
+    fx, robot, sdf, setting = two_links_world(dev, torch.float32)
+    pts = queries(robot, sdf, setting, *two_links_draws(fx, dev))
+    check_lookup("SimpleTwoLinksArm packed f32", pack_planar_sdf(sdf), pts, True)
+    check_lookup("SimpleTwoLinksArm raw f64", sdf.to(dtype=torch.float64), pts.double(),
+                 False)
+
+
+def two_links_phase(dev, card):
+    """The oracle's cold LM solve in float64 on the card, from the
+    fixture's initial trajectory, within 1% of its final cost; then a
+    throughput line at B_TWO_LINKS on the same world, the fixture's start
+    and goal each perturbed by 0.05 N(0, 1) (numpy seed 1), float32, LM
+    with the bench protocol's max_iter 50 and rel_thresh 1e-2."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.planner import (Trajectory, collision_cost, init_traj_straight_line,
+                                         make_problem, optimizer_params_from_setting,
+                                         plan_batch)
+
+    fx, robot, sdf, setting = two_links_world(dev, torch.float64)
+    start = torch.as_tensor(fx["meta_start"], device=dev)[None]
+    goal = torch.as_tensor(fx["meta_goal0"], device=dev)[None]
+    z = torch.zeros_like(start)
+    probs = make_problem(robot, sdf, start, z, goal, z, setting, sdf_pack=False)
+    init = Trajectory(torch.as_tensor(fx["init_pose"], device=dev)[None],
+                      torch.as_tensor(fx["init_vel"], device=dev)[None])
+    res = plan_batch(probs, init, optimizer_params_from_setting(setting))
+    cold, oracle = float(res.error[0]), float(fx["cold_final_error"])
+    log(f"SimpleTwoLinksArm oracle cold solve (f64, card): error {cold:.6f}, oracle "
+        f"{oracle:.6f}, converged {bool(res.converged[0])}, {int(res.iterations[0])} steps")
+    if not (bool(res.converged[0]) and cold <= oracle * 1.01 + 1e-9):
+        raise AssertionError(f"SimpleTwoLinksArm cold solve {cold} not within 1% of {oracle}")
+
+    fx, robot, sdf, setting = two_links_world(dev, torch.float32)
+    setting = dataclasses.replace(setting, max_iter=50, rel_thresh=1e-2)
+    s, g = two_links_draws(fx, dev)
+    params = optimizer_params_from_setting(setting)
+
+    def solve(b):
+        zb = torch.zeros_like(s[:b])
+        p = make_problem(robot, sdf, s[:b], zb, g[:b], zb, setting)
+        res = plan_batch(p, init_traj_straight_line(p.space, s[:b], g[:b], setting.total_step,
+                                                    setting.total_time), params)
+        cc = collision_cost(p, res.traj.pose)
+        torch.cuda.synchronize()
+        return res, cc, None
+
+    mobile_row("two_links_lm", solve, B_TWO_LINKS, card)
+
+
+def pr2_card_vs_cpu(dev, wam_sdf, starts, goals):
+    """Float64, card against CPU, on four of the PR2's problems (4
+    intervals, 1 interpolated state each, the self-collision pairs, one
+    workspace pose slot on link 8 at state 2) and on the same four with
+    the end-effector goal in place of the goal prior."""
+    import functools
+
+    import torch
+    from gpmp2_tpu_torch.geometry import so3
+    from gpmp2_tpu_torch.kinematics.fk import link_poses
+    from gpmp2_tpu_torch.planner import (init_traj_straight_line, make_problem,
+                                         optimizer_params_from_setting, set_workspace_prior)
+    from gpmp2_tpu_torch.robots import generate_mobile_arm
+
+    f64 = torch.float64
+    setting = pr2_setting(total_step=4, inter=1)
+    s_np, g_np = (x[:4].double().cpu().numpy() for x in (starts, goals))
+    fk = generate_mobile_arm("PR2", dtype=f64, device="cpu").fk
+    mid = link_poses(fk, torch.from_numpy(0.5 * (s_np[0] + g_np[0])))
+    ws_point = (mid.trans[8] + torch.tensor([0.05, 0.0, 0.0], dtype=f64)).numpy()
+    ws_rot = (mid.rot[8] @ so3.expmap(torch.tensor([0.0, 0.0, 0.3], dtype=f64))).numpy()
+    goal_point = link_poses(fk, torch.from_numpy(g_np[0])).trans[-1].numpy()
+
+    def build(where, goal_region):
+        s, g = (torch.as_tensor(x, device=where) for x in (s_np, g_np))
+        z = torch.zeros_like(s)
+        probs = make_problem(generate_mobile_arm("PR2", dtype=f64, device=where),
+                             wam_sdf.to(dtype=f64, device=where), s, z, g, z, setting,
+                             sdf_pack=False, num_ws=1, goal_region=goal_region,
+                             goal_point=goal_point, **PR2_KW)
+        probs = set_workspace_prior(probs, 0, 2, 8, point=ws_point, rot=ws_rot)
+        return probs, init_traj_straight_line(probs.space, s, g, setting.total_step,
+                                              setting.total_time)
+
+    params = optimizer_params_from_setting(setting)
+    _card_vs_cpu(dev, "PR2 LM", functools.partial(build, goal_region=False), params)
+    _card_vs_cpu(dev, "PR2 goal region LM", functools.partial(build, goal_region=True), params)
+
+
+def mobile_phase(dev, card, wam_sdf):
+    """Phase 10: K1 at m = 36, K3 at the PR2's and SimpleTwoLinksArm's
+    queries, the PR2 row, the SimpleTwoLinksArm oracle and throughput rows, and the PR2's card-vs-CPU agreement in float64.
+    Returns K1's m = 36 times for the kernels' line."""
+    k1_36 = check_btsolve_m36(dev)
+    robot, starts, goals = pr2_inputs(dev, wam_sdf)
+    check_mobile_lookups(dev, wam_sdf, (robot, starts, goals))
+    mobile_row("pr2_lm", pr2_solver(robot, wam_sdf, starts, goals, pr2_setting()), B_PR2, card)
+    two_links_phase(dev, card)
+    pr2_card_vs_cpu(dev, wam_sdf, starts, goals)
+    return k1_36
+
+
 def main():
     import torch
 
@@ -989,6 +1351,10 @@ def main():
     # 9. Dogleg on the main path's problems
     dogleg_phase(card, inputs)
     log(f"Dogleg done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the mobile manipulators
+    k1.update(mobile_phase(dev, card, sdf))
+    log(f"mobile manipulators done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "btsolve", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/btsolve.cu",

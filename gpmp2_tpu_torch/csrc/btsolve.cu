@@ -47,12 +47,14 @@
 // Tensor cores do not pay here: each product is 14 x 15 on a serial chain
 // of dependent block steps, far below a wgmma tile, and the f64 path would
 // need the FP64 MMA at the same small shapes.
-// M is a template parameter (M in {2, 4, ..., 34}); only the substitution
-// is unrolled (O(M^2) code), so the 34 instantiations build in seconds,
-// where the first port's fully unrolled O(M^3) thread took over a minute.
+// M is a template parameter (M in {2, 4, ..., 36}: 36 is the PR2 mobile
+// manipulator's 2 * 18 dof); only the substitution is unrolled (O(M^2)
+// code), so the 36 instantiations build in seconds, where the first port's
+// fully unrolled O(M^3) thread took over a minute.
 // bt_plan picks the warps per block: 4, halved while the block's shared
-// memory exceeds 48 KB (the largest, M = 34 in f64, takes 47.8 KB for its
-// one warp). The launch bounds ask for 4 resident blocks per SM, so at
+// memory exceeds 48 KB. At M = 36 in f64 one warp alone needs 54.7 KB, so
+// that launch opts in to more dynamic shared memory (up to 227 KB per block
+// on Hopper). The launch bounds ask for 4 resident blocks per SM, so at
 // B = 2048 and M = 14 all 512 blocks are on the card at once.
 // What still bounds it: the latency of the n dependent block steps of one
 // warp (at B = 1 that is the whole time); at B = 2048 the ~16 warps per SM
@@ -66,6 +68,7 @@
 
 namespace {
 
+constexpr int kMaxM = 36;  // largest block size built: PR2, 2 * 18 dof
 constexpr int kMaxWarps = 4;
 constexpr int kMinBlocks = 4;  // resident blocks per SM the registers must allow
 constexpr size_t kDefaultSmem = 48 * 1024;
@@ -221,7 +224,15 @@ bt_kernel(const T* __restrict__ D, const T* __restrict__ U,
       __syncwarp();
     }
 
-    // (L L^T)^{-1} [Us | z], one lane per column; only z on the last block
+    // (L L^T)^{-1} [Us | z], one lane per column; only z on the last block.
+    // Both sweeps read the same triangle of L, through a volatile pointer:
+    // otherwise the compiler keeps the forward sweep's M (M - 1) / 2 loads
+    // live for the back sweep, which under the register cap spills from
+    // M = 14 in f32 and M = 10 in f64 (3.5 and 7.7 KB per thread at
+    // M = 36) and made f32 at M >= 16 and f64 at M = 14 and 36 1.1-4.9x
+    // slower; where nothing spilled (M <= 12 in f32) the volatile read
+    // costs up to 6% (tools/time_btsolve_lread.py builds and times both).
+    const volatile T* L = C;
     for (int c = (last ? M : 0) + lane; c <= M; c += 32) {
       T xc[M];  // the column, in registers: the chain is FMAs alone
 #pragma unroll
@@ -230,14 +241,14 @@ bt_kernel(const T* __restrict__ D, const T* __restrict__ U,
       for (int r = 0; r < M; ++r) {
         T t = xc[r];
 #pragma unroll
-        for (int k = 0; k < r; ++k) t -= C[r * LD + k] * xc[k];
+        for (int k = 0; k < r; ++k) t -= L[r * LD + k] * xc[k];
         xc[r] = t * inv[r];
       }
 #pragma unroll
       for (int r = M - 1; r >= 0; --r) {
         T t = xc[r];
 #pragma unroll
-        for (int k = r + 1; k < M; ++k) t -= C[k * LD + r] * xc[k];
+        for (int k = r + 1; k < M; ++k) t -= L[k * LD + r] * xc[k];
         xc[r] = t * inv[r];
       }
 #pragma unroll
@@ -332,7 +343,7 @@ cudaError_t dispatch(int m, const void* D, const void* U, const void* b,
     GPMP2_BT_CASE(10) GPMP2_BT_CASE(12) GPMP2_BT_CASE(14) GPMP2_BT_CASE(16)
     GPMP2_BT_CASE(18) GPMP2_BT_CASE(20) GPMP2_BT_CASE(22) GPMP2_BT_CASE(24)
     GPMP2_BT_CASE(26) GPMP2_BT_CASE(28) GPMP2_BT_CASE(30) GPMP2_BT_CASE(32)
-    GPMP2_BT_CASE(34)
+    GPMP2_BT_CASE(34) GPMP2_BT_CASE(36)
 #undef GPMP2_BT_CASE
     default:
       return cudaErrorInvalidValue;
@@ -356,7 +367,7 @@ int gpmp2_btsolve(const void* D, const void* U, const void* b,
 // K1's launch plan for block size m: out = {threads, shared bytes}.
 // Returns 0, or cudaErrorInvalidValue for an m the kernel is not built for.
 int gpmp2_btsolve_plan(int m, int f64, int* out) {
-  if (m < 2 || m > 34 || m % 2) return cudaErrorInvalidValue;
+  if (m < 2 || m > kMaxM || m % 2) return cudaErrorInvalidValue;
   const BtPlan plan = bt_plan(m, f64 ? sizeof(double) : sizeof(float));
   out[0] = plan.warps * 32;
   out[1] = static_cast<int>(plan.smem);

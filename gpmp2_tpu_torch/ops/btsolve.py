@@ -28,7 +28,7 @@ from .. import _build
 __all__ = ["block_tridiag_solve_torch", "block_tridiag_solve_cuda",
            "batched_block_tridiag_solve", "launch_plan", "MAX_BLOCK"]
 
-MAX_BLOCK = 34  # largest block size m = 2 * dof the kernel is built for
+MAX_BLOCK = 36  # largest block size m = 2 * dof the kernel is built for (PR2: 18 dof)
 
 
 def block_tridiag_solve_torch(D, U, b, jacobi_scaling: bool = True, lam=None):

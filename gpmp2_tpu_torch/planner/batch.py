@@ -1,8 +1,9 @@
 """Batch trajectory optimization: the planner's entry points.
 
 Port of gpmp2_tpu/planner/batch.py (BatchTrajOptimizer.{h,cpp}) for
-vector-space and SE(2) problems: `make_problem` builds a batch of problems that
-share robot and weights, with one shared SDF world or one per problem;
+vector-space, SE(2) and SE(2) x R^n problems: `make_problem` builds a
+batch of problems that share robot and weights, with one shared SDF world
+or one per problem; `set_workspace_prior` fills a workspace prior slot;
 `plan_batch` optimizes them together; `batch_traj_optimize` does both
 from a reference-style setting. Start and goal states carry an explicit
 leading batch dimension, so no vmap axes tree is needed.
@@ -13,9 +14,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kinematics.fk import num_links_of
 from ..kinematics.robot import RobotModel
 from ..obstacle.sdf import PlanarSDF, SignedDistanceField, pack_planar_sdf, pack_sdf
 from ..solver.optimize import OptimizerParams, OptResult, optimize_batch
@@ -23,7 +26,7 @@ from .problem import Trajectory, TrajProblem, traj_linearize
 from .settings import TrajOptimizerSetting
 from .traj_utils import init_traj_straight_line
 
-__all__ = ["make_problem", "plan_batch", "batch_traj_optimize",
+__all__ = ["make_problem", "set_workspace_prior", "plan_batch", "batch_traj_optimize",
            "optimizer_params_from_setting", "SDF_PACK_BUDGET"]
 
 # bytes of packed table that `make_problem` builds by default (the JAX
@@ -67,6 +70,23 @@ def _check_setting(setting: TrajOptimizerSetting, d: int, vehicle_dynamics: bool
             f"up={setting.joint_pos_limits_up.tolist()}")
 
 
+def _self_collision_table(pairs, robot, dtype, device):
+    """(sphere a, sphere b, eps, precision) tensors of a self-collision table
+    of rows (sphere_a, sphere_b, eps, sigma) (SelfCollision.h:60); empty
+    for None. The FK indexes spheres unchecked, so ids are checked here."""
+    table = np.asarray([] if pairs is None else pairs, dtype=np.float64).reshape(-1, 4)
+    ids = table[:, :2]
+    if (ids != np.round(ids)).any() or (ids < 0).any() or (ids >= robot.num_spheres).any():
+        raise ValueError(
+            f"make_problem: self-collision sphere ids must be integers in "
+            f"[0, {robot.num_spheres}), got {ids[(ids < 0) | (ids >= robot.num_spheres)]}")
+    if (table[:, 3] <= 0).any():
+        raise ValueError("make_problem: self-collision sigmas must be > 0")
+    idx = torch.as_tensor(ids.astype(np.int64), device=device)
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    return idx[:, 0], idx[:, 1], f(table[:, 2]), f(1.0 / table[:, 3] ** 2)
+
+
 def make_problem(
     robot: RobotModel,
     sdf: SignedDistanceField | PlanarSDF,
@@ -76,8 +96,13 @@ def make_problem(
     end_vel,
     setting: TrajOptimizerSetting,
     *,
+    self_collision_pairs=None,
+    num_ws: int = 0,
     flag_vehicle_dynamics: bool = False,
     dyn_sigma: float = 1e-3,
+    goal_region: bool = False,
+    goal_point=None,
+    goal_sigma: float = 1e-3,
     dtype=None,
     device=None,
     sdf_pack=None,
@@ -93,7 +118,13 @@ def make_problem(
     float32 on CUDA). `sdf_pack`: True packs the SDF's corner table, False
     leaves it unpacked, None packs when the table fits SDF_PACK_BUDGET.
     `flag_vehicle_dynamics` adds the vehicle-dynamics factor at every state,
-    with precision 1/dyn_sigma^2 (VehicleDynamics.h)."""
+    with precision 1/dyn_sigma^2 (VehicleDynamics.h).
+    `self_collision_pairs`: rows (sphere_a, sphere_b, eps, sigma), one
+    self-collision factor per row at every support state (SelfCollision.h).
+    `num_ws`: workspace prior slots, off until `set_workspace_prior` fills
+    them. `goal_region`: the end configuration's prior is replaced by an
+    end-effector goal, the last link's origin at `goal_point` ((3,) or
+    (B, 3)) with sigma `goal_sigma` (GoalFactorArm.h)."""
     if dtype is None:
         dtype = start_pose.dtype if torch.is_tensor(start_pose) else torch.float32
         if dtype not in (torch.float32, torch.float64):
@@ -123,11 +154,22 @@ def make_problem(
         raise ValueError(
             f"make_problem: setting.Qc must have shape ({d}, {d}), got "
             f"{tuple(Qc.shape)}")
+    if goal_region and goal_point is None:
+        raise ValueError("make_problem: goal_region needs a goal_point")
+    goal = f(np.zeros(3) if goal_point is None else goal_point)
+    if goal.shape not in ((3,), (B, 3)):
+        raise ValueError(f"make_problem: goal_point must be (3,) or ({B}, 3), got "
+                         f"{tuple(goal.shape)}")
+    if num_ws < 0:
+        raise ValueError(f"make_problem: num_ws must be >= 0, got {num_ws}")
+    sc_a, sc_b, sc_eps, sc_w = _self_collision_table(self_collision_pairs, robot, dtype,
+                                                     device)
 
     dt = setting.total_time / setting.total_step
     inter = setting.obs_check_inter
     taus = torch.arange(1, inter + 1, dtype=dtype, device=device) * (dt / (inter + 1))
     ones = torch.ones(d, dtype=dtype, device=device)
+    slot = torch.zeros((num_ws,), dtype=torch.int64, device=device)
     return TrajProblem(
         robot=robot.to(dtype=dtype, device=device),
         sdf=_maybe_pack_sdf(sdf.to(dtype=dtype, device=device), sdf_pack),
@@ -149,11 +191,48 @@ def make_problem(
         vel_lim_thresh=f(setting.vel_limit_thresh),
         vel_lim_w=f(1.0 / setting.vel_limit_sigma**2),
         dyn_w=f(1.0 / dyn_sigma**2),
+        goal_point=goal.expand(B, 3).contiguous(),
+        goal_w=f(1.0 / goal_sigma**2),
+        sc_pairs_a=sc_a, sc_pairs_b=sc_b, sc_eps=sc_eps, sc_w=sc_w,
+        ws_idx=slot, ws_link=slot.clone(),
+        ws_rot=torch.eye(3, dtype=dtype, device=device).repeat(num_ws, 1, 1),
+        ws_point=torch.zeros((num_ws, 3), dtype=dtype, device=device),
+        ws_pos_w=torch.zeros((num_ws, 3), dtype=dtype, device=device),
+        ws_rot_w=torch.zeros((num_ws, 3), dtype=dtype, device=device),
         N=setting.total_step,
         flag_pos_limit=setting.flag_pos_limit,
         flag_vel_limit=setting.flag_vel_limit,
         flag_vehicle_dynamics=flag_vehicle_dynamics,
+        goal_region=goal_region,
     )
+
+
+def set_workspace_prior(prob: TrajProblem, slot: int, state_idx: int, link_id: int, *,
+                        point=None, rot=None, pos_sigma: float = 0.01,
+                        rot_sigma: float = 0.01) -> TrajProblem:
+    """The problems with workspace prior slot `slot` filled: link
+    `link_id`'s frame at support state `state_idx` is pinned to `point`
+    (3,) and/or `rot` (3, 3) for every problem of the batch
+    (GaussianPriorWorkspacePosition/Orientation/Pose; both for the full
+    pose prior)."""
+    if not 0 <= slot < prob.num_ws:
+        raise ValueError(f"set_workspace_prior: slot {slot} not in [0, {prob.num_ws})")
+    if not 0 <= state_idx <= prob.N:
+        raise ValueError(f"set_workspace_prior: state {state_idx} not in [0, {prob.N}]")
+    n_links = num_links_of(prob.robot.fk)
+    if not 0 <= link_id < n_links:
+        raise ValueError(f"set_workspace_prior: link {link_id} not in [0, {n_links})")
+    upd = {k: getattr(prob, k).clone() for k in
+           ("ws_idx", "ws_link", "ws_rot", "ws_point", "ws_pos_w", "ws_rot_w")}
+    upd["ws_idx"][slot] = state_idx
+    upd["ws_link"][slot] = link_id
+    if point is not None:
+        upd["ws_point"][slot] = torch.as_tensor(point, dtype=prob.ws_point.dtype)
+        upd["ws_pos_w"][slot] = 1.0 / pos_sigma**2
+    if rot is not None:
+        upd["ws_rot"][slot] = torch.as_tensor(rot, dtype=prob.ws_rot.dtype)
+        upd["ws_rot_w"][slot] = 1.0 / rot_sigma**2
+    return dataclasses.replace(prob, **upd)
 
 
 def optimizer_params_from_setting(setting: TrajOptimizerSetting) -> OptimizerParams:

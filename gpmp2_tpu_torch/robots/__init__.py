@@ -1,4 +1,5 @@
-from .mobile_presets import generate_mobile_base
+from .mobile_presets import MOBILE_PRESETS, generate_mobile_arm, generate_mobile_base
 from .presets import ARM_PRESETS, generate_arm
 
-__all__ = ["ARM_PRESETS", "generate_arm", "generate_mobile_base"]
+__all__ = ["ARM_PRESETS", "generate_arm", "MOBILE_PRESETS", "generate_mobile_arm",
+           "generate_mobile_base"]

@@ -13,21 +13,27 @@ import torch
 
 from ..device import resolve_device
 from ..geometry.se3 import Pose3
-from ..kinematics.fk import ArmFK, PointRobotFK, Pose2MobileBaseFK
+from ..kinematics.fk import (ArmFK, PointRobotFK, Pose2Mobile2ArmsFK, Pose2MobileArmFK,
+                             Pose2MobileBaseFK, Pose2MobileVetLin2ArmsFK,
+                             Pose2MobileVetLinArmFK)
 from ..kinematics.robot import RobotModel, check_sphere_table
 from ..obstacle.sdf import PlanarSDF, SignedDistanceField
 from ..planner.problem import TrajProblem
 
 __all__ = ["robot_model_from_numpy", "point_robot_from_numpy",
-           "mobile_base_from_numpy", "sdf_from_numpy", "planar_sdf_from_numpy",
-           "problem_from_numpy", "PROBLEM_ARRAYS"]
+           "mobile_base_from_numpy", "mobile_arm_from_numpy", "sdf_from_numpy",
+           "planar_sdf_from_numpy", "problem_from_numpy", "PROBLEM_ARRAYS"]
 
 # the TrajProblem fields that problem_from_numpy takes as arrays
 PROBLEM_ARRAYS = ("dt", "Qc", "start_pose", "start_vel", "end_pose", "end_vel",
                   "pose_prior_w", "vel_prior_w", "goal_pose_w", "goal_vel_w",
                   "obs_w", "eps", "taus", "pos_lim_down", "pos_lim_up",
                   "pos_lim_thresh", "pos_lim_w", "vel_lim", "vel_lim_thresh",
-                  "vel_lim_w", "dyn_w")
+                  "vel_lim_w", "dyn_w", "goal_point", "goal_w", "sc_pairs_a",
+                  "sc_pairs_b", "sc_eps", "sc_w", "ws_idx", "ws_link", "ws_rot",
+                  "ws_point", "ws_pos_w", "ws_rot_w")
+# ... of which these are integer indices
+_INDEX_ARRAYS = ("sc_pairs_a", "sc_pairs_b", "ws_idx", "ws_link")
 
 
 def _converter(dtype, device):
@@ -76,6 +82,42 @@ def mobile_base_from_numpy(sphere_link_ids, sphere_radii, sphere_centers, *,
                   "mobile_base_from_numpy", dtype, device)
 
 
+def mobile_arm_from_numpy(arms, sphere_link_ids, sphere_radii, sphere_centers, *,
+                          base_T_arm=None, base_T_torso=None, torso_T_arm=None,
+                          reverse_linact=False, dtype=torch.float32,
+                          device=None) -> RobotModel:
+    """RobotModel of a mobile manipulator on an SE(2) base and its sphere
+    table (link ids (S,), radii (S,), centres (S, 3)). `arms`: the DH
+    tables (a, alpha, d, theta_bias) of one or two arms. Each mount is a
+    (rotation (3, 3), translation (3,)) pair, one per arm where a list:
+    `base_T_arm` mounts the arms on the base (Pose2MobileArm,
+    Pose2Mobile2Arms); `base_T_torso` with `torso_T_arm` puts a vertical
+    linear actuator between them (Pose2MobileVetLinArm,
+    Pose2MobileVetLin2Arms; `reverse_linact` flips its sign)."""
+    device = resolve_device(device)
+    f = _converter(dtype, device)
+
+    def pose(p):
+        return Pose3(f(p[0]), f(p[1]))
+
+    chains = [ArmFK.create(*(np.array(x) for x in dh[:3]), theta_bias=np.array(dh[3]),
+                           dtype=dtype, device=device) for dh in arms]
+    if len(chains) not in (1, 2):
+        raise ValueError(f"mobile_arm_from_numpy: one or two arms, got {len(chains)}")
+    if base_T_torso is None:
+        mounts = [pose(p) for p in (base_T_arm if len(chains) == 2 else [base_T_arm])]
+        fk = (Pose2MobileArmFK.create(chains[0], mounts[0]) if len(chains) == 1
+              else Pose2Mobile2ArmsFK.create(*chains, *mounts))
+    else:
+        mounts = [pose(p) for p in (torso_T_arm if len(chains) == 2 else [torso_T_arm])]
+        fk = (Pose2MobileVetLinArmFK.create(chains[0], pose(base_T_torso), mounts[0],
+                                            reverse_linact) if len(chains) == 1
+              else Pose2MobileVetLin2ArmsFK.create(*chains, pose(base_T_torso), *mounts,
+                                                   reverse_linact))
+    return _robot(fk, sphere_link_ids, sphere_radii, sphere_centers,
+                  "mobile_arm_from_numpy", dtype, device)
+
+
 def sdf_from_numpy(origin, cell_size, data, packed=None, *, dtype=torch.float32,
                    device=None) -> SignedDistanceField:
     """SignedDistanceField from origin (3,), cell size (), ([W,] Z, Y, X)
@@ -96,19 +138,24 @@ def planar_sdf_from_numpy(origin, cell_size, data, packed=None, *,
 
 def problem_from_numpy(robot: RobotModel, sdf, N: int, *, flag_pos_limit=False,
                        flag_vel_limit=False, flag_vehicle_dynamics=False,
-                       dtype=torch.float32, device=None, **arrays) -> TrajProblem:
+                       goal_region=False, dtype=torch.float32, device=None,
+                       **arrays) -> TrajProblem:
     """TrajProblem from the port's robot and SDF, the number of intervals N,
-    the limit and vehicle-dynamics flags, and every array named in
-    PROBLEM_ARRAYS (start/end states (B, d))."""
+    the limit, vehicle-dynamics and goal-region flags, and every array
+    named in PROBLEM_ARRAYS (start/end states (B, d); a goal point (3,) is
+    shared by the batch; the index arrays stay integer)."""
     if set(arrays) != set(PROBLEM_ARRAYS):
         raise TypeError(
             f"problem_from_numpy: needs exactly {sorted(PROBLEM_ARRAYS)}, "
             f"got {sorted(arrays)}")
     device = resolve_device(device)
     f = _converter(dtype, device)
+    t = {k: torch.as_tensor(np.array(v), dtype=torch.int64, device=device)
+         if k in _INDEX_ARRAYS else f(v) for k, v in arrays.items()}
+    t["goal_point"] = t["goal_point"].expand(t["start_pose"].shape[0], 3).contiguous()
     return TrajProblem(robot=robot.to(dtype=dtype, device=device),
                        sdf=sdf.to(dtype=dtype, device=device), N=int(N),
                        flag_pos_limit=bool(flag_pos_limit),
                        flag_vel_limit=bool(flag_vel_limit),
                        flag_vehicle_dynamics=bool(flag_vehicle_dynamics),
-                       **{k: f(v) for k, v in arrays.items()})
+                       goal_region=bool(goal_region), **t)

@@ -7,6 +7,8 @@ The kernel itself is held against it on a card in
 test_torch_kernels_cuda.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,12 +31,18 @@ def _random_system(B, n, m, seed=0, dtype=np.float64):
     return tuple(a.astype(dtype) for a in (D, U, b, lam))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_scan_fn(scaling):
+    """The JAX scan solver under vmap, jitted once per scaling flag (its
+    eager op-by-op dispatch takes seconds per call)."""
+    return jax.jit(jax.vmap(
+        lambda d, u, bb: block_tridiag_solve(d, u, bb, jacobi_scaling=scaling)))
+
+
 def _jax_scan(D, U, b, lam, scaling):
     m = D.shape[-1]
     Dd = D + lam[:, None, None, None] * np.eye(m)
-    return np.asarray(jax.vmap(
-        lambda d, u, bb: block_tridiag_solve(d, u, bb, jacobi_scaling=scaling)
-    )(jnp.asarray(Dd), jnp.asarray(U), jnp.asarray(b)))
+    return np.asarray(_jax_scan_fn(scaling)(jnp.asarray(Dd), jnp.asarray(U), jnp.asarray(b)))
 
 
 @pytest.mark.parametrize("scaling", [True, False])

@@ -83,9 +83,10 @@ def _configs(name, N, dtype):
 def test_plain_matches_jax_f64(name):
     jmodel = ROBOTS[name][0](jnp.float64)
     q = _configs(name, 300, np.float64)
-    c_j, J_j = _fk_spheres_jnp(*_structure_arrays(jmodel.fk, jmodel, jnp.float64),
-                               jnp.asarray(q))
-    c_a, J_a = jax.vmap(lambda qq: j_centers_and_jac(jmodel, qq))(jnp.asarray(q))
+    # jitted: the JAX package's eager dispatch takes several times its compile
+    c_j, J_j = jax.jit(_fk_spheres_jnp)(*_structure_arrays(jmodel.fk, jmodel, jnp.float64),
+                                        jnp.asarray(q))
+    c_a, J_a = jax.jit(jax.vmap(lambda qq: j_centers_and_jac(jmodel, qq)))(jnp.asarray(q))
 
     model = _port_robot(jmodel, torch.float64)
     c, J = fk_spheres_torch(*structure_arrays(model, torch.float64, "cpu"),

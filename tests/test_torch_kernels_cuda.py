@@ -58,8 +58,8 @@ def _check_btsolve(device, dtype, B, n, m, damped=True, scaling=True, seed=5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,m", [(torch.float32, m) for m in range(2, 35, 2)]
-                         + [(torch.float64, m) for m in (4, 6, 14, 34)])
+@pytest.mark.parametrize("dtype,m", [(torch.float32, m) for m in range(2, 37, 2)]
+                         + [(torch.float64, m) for m in (4, 6, 14, 34, 36)])
 def test_btsolve_kernel_every_block_size(cuda_device, dtype, m):
     _check_btsolve(cuda_device, dtype, 33, 11, m)
 
@@ -115,13 +115,17 @@ def test_btsolve_kernel_rejects_odd_block(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_btsolve_launch_plan_fits(cuda_device, dtype):
-    """Every block size the kernel takes gets a block within the card's
-    limits (1024 threads, 227 KB of shared memory); others are refused."""
-    for m in range(2, 35, 2):
+    """Every block size the kernel takes, up to the PR2's m = 36, gets a
+    block within the card's limits (1024 threads, 227 KB of shared
+    memory); others are refused. At m = 36 in float64 one warp needs
+    54,720 B, past the 48 KB default: the launch opts in."""
+    for m in range(2, 37, 2):
         threads, smem = bt_launch_plan(m, dtype)
         assert threads % 32 == 0 and 32 <= threads <= 1024
         assert 0 < smem <= 232448
-    for m in (0, 3, 36):
+    assert bt_launch_plan(36, dtype) == ((32, 54720) if dtype == torch.float64
+                                         else (32, 27360))
+    for m in (0, 3, 38):
         with pytest.raises(ValueError):
             bt_launch_plan(m, dtype)
 
@@ -256,6 +260,65 @@ def test_btsolve_kernel_mobile_gauss_newton(cuda_device, dtype):
     """K1 at the MobileBaseSE2 shape (m = 6, n = 16, B = 4096) with
     lambda = 0, as Dogleg's Gauss-Newton point solves it."""
     _check_btsolve(cuda_device, dtype, 4096, 16, 6, damped=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("damped", [True, False])
+def test_btsolve_kernel_pr2_block(cuda_device, dtype, damped):
+    """K1 at the PR2's shape (m = 36, n = 11, B = 2048), damped and with
+    lambda = 0."""
+    _check_btsolve(cuda_device, dtype, 2048, 11, 36, damped=damped)
+
+
+@pytest.mark.cuda
+def test_btsolve_kernel_rejects_block_over_36(cuda_device):
+    D, U, b, lam = (torch.as_tensor(a, device=cuda_device)
+                    for a in random_system(2, 3, 38, seed=1))
+    with pytest.raises(ValueError, match="36"):
+        block_tridiag_solve_cuda(D, U, b, True, lam)
+
+
+@pytest.mark.cuda
+def test_pr2_linearize_card_matches_cpu(cuda_device):
+    """One PR2 linearize (SE(2) x R^15 states, 65 spheres on a 3D field,
+    the self-collision pairs, a workspace pose slot, vehicle dynamics, one
+    interpolated state per interval) on the card (K3 and the torch.func
+    Jacobians) against the CPU's plain path, float64, rtol 1e-9."""
+    from gpmp2_tpu_torch.planner import (Trajectory, TrajOptimizerSetting,
+                                         init_traj_straight_line, make_problem,
+                                         set_workspace_prior, traj_linearize)
+    from gpmp2_tpu_torch.robots import generate_mobile_arm
+    from gpmp2_tpu_torch.utils import convert
+
+    n, cell, origin = 40, 0.1, np.array([-2.0, -2.0, -0.5])
+    Z, Y, X = np.meshgrid(*(origin[k] + cell * np.arange(n) for k in (2, 1, 0)),
+                          indexing="ij")
+    data = np.sqrt((X + 0.2) ** 2 + Y ** 2 + (Z - 1.0) ** 2) - 0.3
+    setting = TrajOptimizerSetting(dof=18, total_step=4, total_time=4.0, cost_sigma=0.05,
+                                   epsilon=0.1, obs_check_inter=1, opt_type="lm")
+    rng = np.random.default_rng(3)
+    B = 16
+    s = np.concatenate([rng.uniform(-1.0, -0.6, (B, 2)), 0.3 * rng.normal(size=(B, 16))], 1)
+    g = s + 0.3 * rng.normal(size=(B, 18))
+    s[:, 4], s[:, 11] = -0.2, 0.2  # the forearms meet: active pairs
+    noise = rng.normal(size=(2, B, 5, 18))
+    pairs = [(a, b, 0.02, 0.05) for a in range(24, 42) for b in range(47, 65)]
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        z = torch.zeros(B, 18, dtype=torch.float64, device=dev)
+        probs = make_problem(generate_mobile_arm("PR2", dtype=torch.float64, device=dev),
+                             convert.sdf_from_numpy(origin, cell, data, dtype=torch.float64,
+                                                    device=dev),
+                             f(s), z, f(g), z, setting, self_collision_pairs=pairs, num_ws=1,
+                             flag_vehicle_dynamics=True, dyn_sigma=0.01)
+        probs = set_workspace_prior(probs, 0, 2, 8, point=[0.3, 0.2, 1.1], rot=np.eye(3))
+        line = init_traj_straight_line(probs.space, f(s), f(g), 4, 4.0)
+        traj = Trajectory(line.pose + 0.1 * f(noise[0]), line.vel + 0.1 * f(noise[1]))
+        out.append([t.cpu() for t in traj_linearize(probs, traj)])
+    for name, a, b in zip(("H_diag", "H_off", "b", "err"), *out):
+        assert torch.allclose(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max())), name
 
 
 @pytest.mark.cuda

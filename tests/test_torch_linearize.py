@@ -9,6 +9,8 @@ The port's obstacle Jacobian is -g . J from explicit sphere Jacobians; the
 JAX default is the triple product: the difference is reassociation only.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,13 +50,19 @@ BASE_START = np.array([-0.8, -1.70, 1.64, 1.29, 1.1, -0.106, 2.2])
 BASE_GOAL = np.array([-0.0, 0.94, 0.0, 1.6, 0.0, -0.919, 1.55])
 
 
-def world_field():
-    """(Z, Y, X) SDF of two boxes beside the WAM's straight-line paths."""
+@functools.lru_cache(maxsize=None)
+def _world_field():
     occ = np.zeros((60, 60, 60))
     occ, _ = add_obstacle_3d([30, 44, 51], [10, 6, 10], occ)
     occ, _ = add_obstacle_3d([40, 26, 44], [6, 6, 14], occ)
     return np.ascontiguousarray(
         np.transpose(signed_distance_field_3d(occ, CELL), (2, 1, 0)))
+
+
+def world_field():
+    """(Z, Y, X) SDF of two boxes beside the WAM's straight-line paths (a
+    fresh copy of the one computed per process)."""
+    return _world_field().copy()
 
 
 def wam_setting(total_step=5, inter=3, opt_type="lm", dof=7):
@@ -167,7 +175,8 @@ def test_linearize_matches_jax(case):
         eps_total = (tprob.robot.sphere_radii + tprob.eps)[0]
         assert bool((dist[0, :, 0] == eps_total).all())
 
-    ref = jax.vmap(j_traj_linearize, in_axes=(axes, 0))(
+    # jitted: the JAX package's eager vmap takes several times its compile
+    ref = jax.jit(jax.vmap(j_traj_linearize, in_axes=(axes, 0)))(
         jprob, JTrajectory(jnp.asarray(pose), jnp.asarray(vel)))
     got = traj_linearize(tprob, Trajectory(torch.from_numpy(pose), torch.from_numpy(vel)))
     for name, g, r in zip(("H_diag", "H_off", "b", "err"), got, ref):
@@ -177,7 +186,7 @@ def test_linearize_matches_jax(case):
         np.testing.assert_allclose(g.numpy(), r, rtol=1e-9,
                                    atol=1e-12 * np.abs(r).max(), err_msg=name)
 
-    err_ref = jax.vmap(j_traj_error, in_axes=(axes, 0))(
+    err_ref = jax.jit(jax.vmap(j_traj_error, in_axes=(axes, 0)))(
         jprob, JTrajectory(jnp.asarray(pose), jnp.asarray(vel)))
     err = traj_error(tprob, Trajectory(torch.from_numpy(pose), torch.from_numpy(vel)))
     np.testing.assert_allclose(err.numpy(), np.asarray(err_ref), rtol=1e-9)

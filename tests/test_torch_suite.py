@@ -18,6 +18,7 @@ give-up rescue, and the entry points' default device.
 """
 
 import dataclasses
+import functools
 import os
 
 import jax
@@ -146,6 +147,7 @@ def jax_and_port(jrobot, jsdf, starts, goals, setting, port_robot):
     return probs, axes, tprob
 
 
+@functools.lru_cache(maxsize=None)
 def _arm3_limits():
     ds = generate_2d_dataset("OneObstacleDataset")
     field = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=F64,
@@ -169,6 +171,7 @@ def _arm3_limits():
     return jax_and_port(jarm, jsdf, starts, goals, setting, port_robot)
 
 
+@functools.lru_cache(maxsize=None)
 def _point_worlds():
     B = 4
     data = disc_worlds([0.12, -0.2, 0.3, 0.001])
@@ -204,13 +207,14 @@ def test_linearize_matches_jax(case):
         assert bool((v.abs() > tprob.vel_lim - tprob.vel_lim_thresh).any())
     jtraj = JTrajectory(jnp.asarray(pose), jnp.asarray(vel))
     ttraj = Trajectory(torch.from_numpy(pose), torch.from_numpy(vel))
-    ref = jax.vmap(j_traj_linearize, in_axes=(axes, 0))(jprob, jtraj)
+    # jitted: the JAX package's eager vmap takes several times its compile
+    ref = jax.jit(jax.vmap(j_traj_linearize, in_axes=(axes, 0)))(jprob, jtraj)
     got = traj_linearize(tprob, ttraj)
     for name, g, r in zip(("H_diag", "H_off", "b", "err"), got, ref):
         r = np.asarray(r)
         np.testing.assert_allclose(g.numpy(), r, rtol=1e-9,
                                    atol=1e-12 * np.abs(r).max(), err_msg=name)
-    err_ref = jax.vmap(j_traj_error, in_axes=(axes, 0))(jprob, jtraj)
+    err_ref = jax.jit(jax.vmap(j_traj_error, in_axes=(axes, 0)))(jprob, jtraj)
     np.testing.assert_allclose(traj_error(tprob, ttraj).numpy(), np.asarray(err_ref),
                                rtol=1e-9)
 
@@ -226,7 +230,7 @@ def test_planar_factor_error_matches_jax(packed):
     if not packed:
         jsdf, tsdf = jsdf._replace(packed=None), dataclasses.replace(tsdf, packed=None)
     q = np.random.default_rng(8).uniform(-np.pi, np.pi, (64, 3))
-    ref = jax.vmap(lambda c: j_error(jprob.robot, jsdf, c, 0.2))(jnp.asarray(q))
+    ref = jax.jit(jax.vmap(lambda c: j_error(jprob.robot, jsdf, c, 0.2)))(jnp.asarray(q))
     got = obstacle_planar_factor_error(tprob.robot, tsdf, torch.from_numpy(q),
                                        torch.tensor(0.2, dtype=F64))
     assert float(np.asarray(ref).max()) > 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_main.py [--out DIR] [--config main|mobile]
+    python3 tools/profile_torch_main.py [--out DIR] [--config main|mobile|pr2]
 
 Builds chip_smoke.py's main-path inputs (`main_path_inputs`: WAM 7-DOF, the
 300^3 WAMDeskDataset SDF in float32, numpy seed 0 endpoints, LM with
@@ -26,15 +26,19 @@ DIR/profile_b{B}.txt (default DIR: build/profile). Imports no JAX.
 
 `--config mobile` profiles one MobileBaseSE2 solve instead (chip_smoke.py's
 suite config: MobileMap1, SE(2) states, vehicle dynamics, B = 4096, the
-suite's throughput draws, LM, float32) and prints the same fields plus the
-torch.func Jacobians' share: jacobian_device_ms sums the device time under
-the labelled ranges of the boundary-prior, Lie GP prior and interpolation
-Jacobians (planner/problem.py) in the profiled solve (jacobian_spans_ms:
-each range's span on the card's timeline, idle gaps included; the spans
-are left out of device_busy_ms), and jacobian_ms /
-linearize_ms are CUDA-event means of those Jacobians alone and of one
-whole `traj_linearize`, on the straight-line init. Its table goes to
-DIR/profile_mobile_b4096.txt.
+suite's throughput draws, LM, float32), and `--config pr2` one solve of
+chip_smoke.py's PR2 row (phase 10: 18 dof, 65 spheres, the 300^3 field,
+self-collision, B = 2048). Each prints the same fields plus the share of
+labelled stages (planner/problem.py): ranges_ms, the device time under
+each labelled range in the profiled solve (spans_ms: each range's span on
+the card's timeline, idle gaps included; both are left out of
+device_busy_ms); jacobian_device_ms, the sum over the boundary-prior, Lie
+GP prior and interpolation Jacobians; for pr2 also the obstacle sphere
+pass (centres and Jacobians), the lookup and -g . J, the interpolated
+factors' Gram and the self-collision factors. jacobian_ms / linearize_ms
+are CUDA-event means of those Jacobians alone and of one whole
+`traj_linearize`, on the straight-line init. The table goes to
+DIR/profile_{mobile,pr2}_b{B}.txt.
 """
 
 import argparse
@@ -50,7 +54,7 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join("build", "profile"))
-    ap.add_argument("--config", choices=("main", "mobile"), default="main")
+    ap.add_argument("--config", choices=("main", "mobile", "pr2"), default="main")
     args = ap.parse_args()
 
     import torch
@@ -77,8 +81,8 @@ def main():
 
     dev = torch.device("cuda", 0)
     os.makedirs(args.out, exist_ok=True)
-    if args.config == "mobile":
-        return profile_mobile(args.out, card, dev)
+    if args.config != "main":
+        return profile_mobile(args.out, card, dev, args.config)
     robot, sdf, setting, params, starts, goals = cs.main_path_inputs(dev)
 
     for b in (cs.B_MAIN, 32, 1):
@@ -131,18 +135,20 @@ def device_busy(ka):
 
 
 JACOBIANS = ("_prior_pose_jacobian", "_lie_gp_jacobians", "_interp_pose_jacobians")
+# the PR2 linearize's other labelled stages: the obstacle sphere pass
+# (centres and Jacobians), the SDF lookup and -g . J, the interpolated
+# factors' Gram, the self-collision factors
+PR2_STAGES = ("_spheres_and_jac", "_obs_res_and_jac", "_interp_gram", "_selfcoll_res_and_jac")
 
 
-def profile_mobile(out, card, dev):
+def mobile_problem(dev):
+    """chip_smoke.py's MobileBaseSE2 suite config at B = 4096 on the suite's
+    throughput draws: (problems, initial trajectory, LM parameters)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     import chip_smoke as cs
     from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
-    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
-    from gpmp2_tpu_torch.planner import (init_traj_straight_line, make_problem, plan_batch,
-                                         traj_linearize)
-    from gpmp2_tpu_torch.planner import problem as problem_mod
+    from gpmp2_tpu_torch.planner import init_traj_straight_line, make_problem
     from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
     from gpmp2_tpu_torch.robots import generate_mobile_base
 
@@ -150,7 +156,6 @@ def profile_mobile(out, card, dev):
     ds = generate_2d_dataset("MobileMap1")
     sdf = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, device=dev)
     setting = cs.mobile_setting()
-    params = optimizer_params_from_setting(setting)
     # the suite's throughput draws: numpy seed 1 after PointRobot2D's four
     # uniform draws of its batch
     rng = np.random.default_rng(1)
@@ -161,12 +166,45 @@ def profile_mobile(out, card, dev):
     probs = make_problem(generate_mobile_base(device=dev), sdf, s, z, g, z, setting,
                          **cs.MOBILE_KW)
     init = init_traj_straight_line(probs.space, s, g, setting.total_step, setting.total_time)
+    return probs, init, optimizer_params_from_setting(setting)
+
+
+def pr2_problem(dev):
+    """chip_smoke.py's PR2 row at B = 2048 (phase 10): (problems, initial
+    trajectory, LM parameters)."""
+    import torch
+
+    import chip_smoke as cs
+    from gpmp2_tpu_torch.planner import init_traj_straight_line, make_problem
+    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
+
+    sdf = cs.main_path_inputs(dev)[1]
+    robot, s, g = cs.pr2_inputs(dev, sdf)
+    setting = cs.pr2_setting()
+    z = torch.zeros_like(s)
+    probs = make_problem(robot, sdf, s, z, g, z, setting, **cs.PR2_KW)
+    init = init_traj_straight_line(probs.space, s, g, setting.total_step, setting.total_time)
+    return probs, init, optimizer_params_from_setting(setting)
+
+
+def profile_mobile(out, card, dev, config):
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke as cs
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
+    from gpmp2_tpu_torch.planner import plan_batch, traj_linearize
+    from gpmp2_tpu_torch.planner import problem as problem_mod
+
+    probs, init, params = (pr2_problem if config == "pr2" else mobile_problem)(dev)
+    labels = JACOBIANS + (PR2_STAGES if config == "pr2" else ())
     plan_batch(probs, init, params)  # warm-up
     torch.cuda.synchronize()
 
     pose, vel = init
-    n, T = pose.shape[1], probs.taus.shape[0]
-    pt0 = problem_mod._collision_confs(probs, pose, vel)[:, n:].reshape(B, n - 1, T, 3)
+    B, n, d = pose.shape
+    T = probs.taus.shape[0]
+    pt0 = problem_mod._collision_confs(probs, pose, vel)[:, n:].reshape(B, n - 1, T, d)
 
     def jacobians():
         problem_mod._prior_pose_jacobian(probs.space, probs.start_pose, pose[:, 0])
@@ -177,13 +215,21 @@ def profile_mobile(out, card, dev):
     linearize_ms = cs.cuda_ms(lambda: traj_linearize(probs, init), 10)
     jacobian_ms = cs.cuda_ms(jacobians, 10)
 
-    # label the Jacobian helpers for the profiled solve
-    originals = {name: getattr(problem_mod, name) for name in JACOBIANS}
+    # label the stages for the profiled solve; a helper that calls itself
+    # (the SE(2) x R^n Jacobians call their SE(2) block) is labelled once
+    originals = {name: getattr(problem_mod, name) for name in labels}
+    depth = dict.fromkeys(labels, 0)
 
     def labelled(name, fn):
         def run(*a, **k):
-            with record_function(name):
+            if depth[name]:
                 return fn(*a, **k)
+            depth[name] += 1
+            try:
+                with record_function(name):
+                    return fn(*a, **k)
+            finally:
+                depth[name] -= 1
         return run
 
     for name, fn in originals.items():
@@ -202,21 +248,21 @@ def profile_mobile(out, card, dev):
     # a labelled range has a host row (its kernels' device time) and a
     # device row (its span on the card's timeline, gaps included)
     ranges = {e.key: e.device_time_total / 1e3 for e in ka
-              if e.key in JACOBIANS and e.device_type.name == "CPU"}
+              if e.key in labels and e.device_type.name == "CPU"}
     spans = {e.key: e.self_device_time_total / 1e3 for e in ka
-             if e.key in JACOBIANS and e.device_type.name == "CUDA"}
+             if e.key in labels and e.device_type.name == "CUDA"}
     print(json.dumps({
-        "config": "MobileBaseSE2", "B": B, "card": card,
+        "config": "PR2" if config == "pr2" else "MobileBaseSE2", "B": B, "card": card,
         "linearize_ms": linearize_ms, "jacobian_ms": jacobian_ms,
         "profiled_wall_ms": pwall * 1e3,
-        **device_busy([e for e in ka if e.key not in JACOBIANS]),
-        "jacobian_device_ms": sum(ranges.values()), "jacobian_ranges_ms": ranges,
-        "jacobian_spans_ms": spans,
+        **device_busy([e for e in ka if e.key not in labels]),
+        "jacobian_device_ms": sum(ranges.get(k, 0.0) for k in JACOBIANS),
+        "ranges_ms": ranges, "spans_ms": spans,
         "max_iterations": int(res.iterations.max()),
         "k1_launches": block_tridiag_solve_cuda.launches,
     }), flush=True)
     table = ka.table(sort_by="self_cuda_time_total", row_limit=30)
-    with open(os.path.join(out, f"profile_mobile_b{B}.txt"), "w") as fh:
+    with open(os.path.join(out, f"profile_{config}_b{B}.txt"), "w") as fh:
         fh.write(card + "\n" + table)
     print("\n".join(table.splitlines()[:34]), flush=True)
     return 0
