@@ -72,14 +72,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    update and warm-up round, then 8 timed rounds of pins, state estimates
    and goal moves, warm updates of 3 steps): K1, K2 and K3 against their
    plain versions at the fleet's shapes (K1 on its own pinned normal
-   equations), K1, K2 and K3 must each launch during the timed rounds and
+   equations), timed beside their bounds there, K1, K2 and K3 must each
+   launch during the timed rounds and
    every final trajectory must be finite; throughput and quality are
-   printed, not gated.
+   printed, not gated;
+12. the manual graphs: K2 and K3 against their plain versions at the
+   groups' shapes of wam_factor_graph.py's FactorGraph (10 and 90
+   configurations, 160 and 1,440 queries; packed float32 and raw
+   float64), timed with their bounds, K1 timed at B = 1 on the graph's
+   normal equations; that graph built as the planner's recipe in float64
+   on the card against traj_linearize (err within rtol 1e-12, H and b
+   within atol 1e-9) and its optimize against plan_batch (rel 1e-9, equal
+   iterations); the example's graph in float64, card against CPU (rel
+   1e-6, equal iterations); the example's graph in float32 on the packed
+   field (it must converge with a finite trajectory, and K1, K2 and K3
+   must each launch in the timed optimize), timed beside plan_batch at
+   B = 1; mobile_arm2_factor_graph.py's graph beside an in-range disc in
+   float64 under Gauss-Newton, card against CPU (rel 1e-6, equal
+   iterations; K1 and K3 must launch); and multi_graph_point_robot.py's
+   planner graph in float64, card against CPU (errors before and after
+   within rel 1e-6, equal accepted steps, the same Dijkstra path; K3 must
+   launch).
 
 It prints one informational JSON line of main-path metrics, one per suite
 config, one for the Dogleg phase, one per mobile-manipulator row, one for
 the WAM replanning fleet (session-updates/s and the launches of its timed
-rounds), a line
+rounds), one for the WAM factor graph (`wam7_factor_graph`: the float32
+optimize's time, attempts and launches beside plan_batch's at B = 1), a
+line
 of K1's and K2's recorded times before their current designs (not
 measured in the run), the kernels' JSON line (K1's entry with its m = 36
 times), and last `{"ok": true, "device": {...}}`.
@@ -139,6 +159,37 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(B, n, m, itemsize=4, flops_per_s=F32_FLOPS):
+    """K1's bound for B damped systems of n blocks of m: D, U, b and lambda
+    read once and x written once; the operations of the block recurrence
+    (per block: Cholesky m^3/3, the [U | z] solve and the U^T X carry
+    4 m^2 (m + 1), back substitution 2 m^2)."""
+    nbytes = itemsize * B * (n * m * m + (n - 1) * m * m + 2 * n * m + 1)
+    return bound(nbytes, B * n * (m**3 / 3 + 4 * m * m * (m + 1) + 2 * m * m), flops_per_s)
+
+
+def k2_bound(N, d, S):
+    """K2's bound for N float32 configurations of d joints and S spheres:
+    the configurations read once, the centres and Jacobians written once;
+    the chain's and the spheres' operations."""
+    return bound(4 * N * (d + S * 3 + S * 3 * d), N * (40 * d + S * (12 + 9 * d)))
+
+
+def k3_bound(pts, sdf):
+    """K3's bound for float32 queries pts (N, 3) on a packed 3D field: the
+    points read once, the distinct packed rows they touch read once, the
+    four outputs and the mask written once. Returns (bound_ms, bound_by,
+    distinct rows)."""
+    import torch
+
+    c = _cell_coords(pts.double(), sdf).clamp(min=0)
+    nz, rows, cols = sdf.grid
+    lo = [c[:, k].floor().clamp(max=s - 2).long() for k, s in enumerate((cols, rows, nz))]
+    touched = int(torch.unique((lo[2] * rows + lo[1]) * cols + lo[0]).numel())
+    N = pts.shape[0]
+    return (*bound(N * 3 * 4 + touched * 32 + N * (4 * 4 + 1), N * 120), touched)
 
 
 def check_btsolve(dev):
@@ -205,8 +256,7 @@ def check_btsolve(dev):
     Dm, Um, bm, lm = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                       for a in random_system(4096, 16, 6, seed=2, damped=False))
     ms_m6 = cuda_ms(lambda: block_tridiag_solve_cuda(Dm, Um, bm, True, lm), 50)
-    m6_bound, m6_by = bound(4 * (Dm.numel() + Um.numel() + 2 * bm.numel() + lm.numel()),
-                            4096 * 16 * (6**3 / 3 + 4 * 36 * 7 + 2 * 36))
+    m6_bound, m6_by = k1_bound(4096, 16, 6)
     plain_ms = cuda_ms(lambda: block_tridiag_solve_torch(D, U, b, True, lam), 10)
     # the same damped systems, dense (B, n m, n m), for one library call
     H = torch.zeros((B, n, m, n, m), dtype=torch.float32, device=dev)
@@ -219,11 +269,7 @@ def check_btsolve(dev):
     library_ms = cuda_ms(lambda: torch.linalg.solve(H, rhs), 10)
     x_lib = torch.linalg.solve(H, rhs).reshape(B, n, m)
     lib_err = float((x_lib - block_tridiag_solve_cuda(D, U, b, True, lam)).abs().max())
-    # inputs D, U, b, lam read once and x written once; the flop count is
-    # that of the block recurrence (per block: Cholesky m^3/3, the [U | z]
-    # solve and the U^T X carry 4 m^2 (m + 1), back substitution 2 m^2)
-    nbytes = 4 * (D.numel() + U.numel() + b.numel() + lam.numel() + b.numel())
-    bound_ms, bound_by = bound(nbytes, B * n * (m**3 / 3 + 4 * m * m * (m + 1) + 2 * m * m))
+    bound_ms, bound_by = k1_bound(B, n, m)
     log(f"K1 time at B={B} n={n} m={m} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.linalg.solve dense {library_ms:.4f} ms (max|dx| vs K1 {lib_err:.2e}), "
         f"bound {bound_ms:.4f} ms ({bound_by}); kernel at B=1 {ms_b1:.4f} ms; at "
@@ -303,8 +349,7 @@ def check_fk_arm(dev):
     ms = cuda_ms(lambda: arm_fk_spheres_cuda(*ops, q), 20)
     plain_ms = cuda_ms(lambda: fk_spheres_torch(*ops, q), 10)
     S, d = 16, 7
-    nbytes = 4 * n_main * (d + S * 3 + S * 3 * d)
-    bound_ms, bound_by = bound(nbytes, n_main * (40 * d + S * (12 + 9 * d)))
+    bound_ms, bound_by = k2_bound(n_main, d, S)
     log(f"K2 time at N={n_main} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
@@ -511,15 +556,8 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
     table, origin, cell, grid = _lookup_operands(wam_packed, True)
     ms = cuda_ms(lambda: sdf_lookup_cuda(wam_pts, table, origin, cell, grid), 20)
     plain_ms = cuda_ms(lambda: sdf_lookup_torch(wam_pts, table, origin, cell, grid), 5)
-    # bytes: the points read once, the distinct packed rows these queries
-    # touch read once, the four outputs and the mask written once
-    c = _cell_coords(wam_pts.double(), wam_packed).clamp(min=0)
-    nz, rows, cols = grid
-    lo = [c[:, k].floor().clamp(max=s - 2).long() for k, s in enumerate((cols, rows, nz))]
-    touched = int(torch.unique((lo[2] * rows + lo[1]) * cols + lo[0]).numel())
+    bound_ms, bound_by, touched = k3_bound(wam_pts, wam_packed)
     N = wam_pts.shape[0]
-    nbytes = N * 3 * 4 + touched * 32 + N * (4 * 4 + 1)
-    bound_ms, bound_by = bound(nbytes, N * 120)
     log(f"K3 time at N={N} f32 packed (WAM main path): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {touched} distinct rows)")
     grid_sample_ms = _grid_sample_ms(wam_sdf, wam_pts)
@@ -1029,10 +1067,7 @@ def check_btsolve_m36(dev):
                                      f"{tol} * {scale}")
             if damped:
                 ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 20)
-                elem = D.element_size()
-                nbytes = elem * (D.numel() + U.numel() + 2 * b.numel() + lam.numel())
-                bound_ms, bound_by = bound(
-                    nbytes, B * n * (m**3 / 3 + 4 * m * m * (m + 1) + 2 * m * m), peak)
+                bound_ms, bound_by = k1_bound(B, n, m, D.element_size(), peak)
                 threads, smem = launch_plan(m, dtype)
                 log(f"K1 time at B={B} n={n} m={m} {name}: kernel {ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by}); {threads} threads, {smem} B shared "
@@ -1474,6 +1509,10 @@ def check_fleet_kernels(dev, fleet):
     k3_ms = cuda_ms(lambda: sdf_lookup_cuda(pts, *_lookup_operands(probs.sdf, True)), 20)
     log(f"kernel times at the WAM fleet's shapes: K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms "
         f"(N={q.shape[0]}), K3 {k3_ms:.4f} ms (N={pts.shape[0]})")
+    b1, b2 = k1_bound(B, b.shape[1], b.shape[2]), k2_bound(q.shape[0], 7, 16)
+    b3 = k3_bound(pts, probs.sdf)
+    log(f"bounds at the WAM fleet's shapes: K1 {b1[0]:.6f} ms ({b1[1]}), K2 {b2[0]:.6f} ms "
+        f"({b2[1]}), K3 {b3[0]:.6f} ms ({b3[1]}; {b3[2]} distinct rows)")
 
 
 def wam_fleet_sessions(dev, inputs):
@@ -1577,6 +1616,349 @@ def replan_phase(dev, card, inputs):
     wam_fleet(dev, card, inputs)
 
 
+# ---- phase 12: the manual graphs -----------------------------------------------
+
+WAM_GRAPH_STEPS, WAM_GRAPH_CHECK = 10, 100  # wam_factor_graph.py's settings
+GRAPH_REPEATS = 3
+
+
+def wam_graph(robot, sdf, start, goal, recipe=False):
+    """wam_factor_graph.py's graph: start and goal priors (sigma 1e-4), a GP
+    prior, an obstacle factor and 9 interpolated ones (total_check 100) per
+    interval, cost_sigma 0.02, eps 0.2, over 11 states of 2 s. recipe=True:
+    the planner's recipe of the main path's setting (an obstacle factor at
+    every state, the planner's taus), its factors added in the planner's
+    order, to be held against traj_linearize."""
+    import torch
+    from gpmp2_tpu_torch.planner import FactorGraph
+
+    N, T = WAM_GRAPH_STEPS, 2.0
+    dt, inter = T / N, WAM_GRAPH_CHECK // WAM_GRAPH_STEPS - 1
+    Qc, zero = np.eye(7), torch.zeros_like(start)
+    g = FactorGraph(robot.space, N + 1)
+    g.add_prior_pose(0, start, 1e-4)
+    g.add_prior_vel(0, zero, 1e-4)
+    g.add_prior_pose(N, goal, 1e-4)
+    g.add_prior_vel(N, zero, 1e-4)
+    if recipe:
+        for i in range(N):
+            g.add_gp_prior(i, i + 1, dt, Qc)
+        for i in range(N + 1):
+            g.add_obstacle(i, robot, sdf, 0.02, 0.2)
+        for i in range(N):
+            for j in range(1, inter + 1):
+                g.add_obstacle_gp(i, i + 1, robot, sdf, 0.02, 0.2, Qc, dt, j * (dt / (inter + 1)))
+        return g
+    for i in range(1, N + 1):
+        g.add_gp_prior(i - 1, i, dt, Qc)
+        g.add_obstacle(i, robot, sdf, 0.02, 0.2)
+        for j in range(1, inter + 1):
+            g.add_obstacle_gp(i - 1, i, robot, sdf, 0.02, 0.2, Qc, dt, j * (T / WAM_GRAPH_CHECK))
+    return g
+
+
+def wam_graph_params():
+    from gpmp2_tpu_torch.solver.optimize import OptimizerParams
+
+    return OptimizerParams(method="lm", max_iter=100, rel_thresh=1e-4)
+
+
+def check_graph_kernels(dev, robot, sdf):
+    """K2 and K3 against their plain versions at the WAM graph's group
+    shapes: the 10 support and 90 interpolated configurations of the
+    example's straight line, their 160 and 1,440 sphere centres, in the
+    packed float32 field `sdf` and the raw float64 one; each timed beside
+    its bound, and K1 timed at B = 1, n = 11, m = 14 on the graph's normal
+    equations."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
+    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda, fk_spheres_torch, structure_arrays
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+    from gpmp2_tpu_torch.planner import init_traj_straight_line, interpolate_traj
+
+    f32, f64 = torch.float32, torch.float64
+    start, goal = (torch.as_tensor(x, dtype=f32, device=dev) for x in (BASE_START, BASE_GOAL))
+    line = init_traj_straight_line(robot.space, start, goal, WAM_GRAPH_STEPS, 2.0)
+    dense = interpolate_traj(robot.space, line, np.eye(7), 0.2, 9).pose[:-1].reshape(10, 10, 7)
+    S, d = 16, 7
+    sdf64 = dataclasses.replace(sdf, packed=None).to(dtype=f64)
+    times = {}
+    for name, q in (("support", line.pose[1:]), ("interpolated", dense[:, 1:].reshape(-1, 7))):
+        q = q.contiguous()
+        N = q.shape[0]
+        for dtype, tol in ((f32, 1e-5), (f64, 1e-12)):
+            c, J = arm_fk_spheres_cuda(*structure_arrays(robot, dtype, dev), q.to(dtype))
+            c_ref, J_ref = fk_spheres_torch(*structure_arrays(robot, f64, dev), q.double())
+            err = max(float((c.double() - c_ref).abs().max()),
+                      float((J.double() - J_ref).abs().max()))
+            log(f"K2 WAM graph {name}: N={N} {dtype} max|d|={err:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"K2 WAM graph {name} N={N} {dtype}: max|d| {err} > {tol}")
+        pts = c_ref.reshape(-1, 3)
+        check_lookup(f"WAM graph {name} packed f32", sdf, pts.float().contiguous(), True)
+        check_lookup(f"WAM graph {name} raw f64", sdf64, pts.contiguous(), False)
+        ops = structure_arrays(robot, f32, dev)
+        q32 = q.float()
+        p32 = pts.float().contiguous()
+        table = _lookup_operands(sdf, True)
+        k2_ms = cuda_ms(lambda: arm_fk_spheres_cuda(*ops, q32), 50)
+        k3_ms = cuda_ms(lambda: sdf_lookup_cuda(p32, *table), 50)
+        b2, b3 = k2_bound(N, d, S), k3_bound(p32, sdf)
+        times[name] = (k2_ms, k3_ms)
+        log(f"WAM graph {name}: K2 at N={N} {k2_ms:.4f} ms (bound {b2[0]:.6f} ms, {b2[1]}), "
+            f"K3 at {p32.shape[0]} queries {k3_ms:.4f} ms (bound {b3[0]:.6f} ms, {b3[1]}; "
+            f"{b3[2]} distinct rows)")
+    del sdf64
+    # K1 on the graph's own normal equations at the example's start
+    g = wam_graph(robot, sdf, start, goal)
+    D, U, b, _ = (t[None].contiguous() for t in g.linearize(line))
+    lam = torch.full((1,), 100.0, device=dev)
+    k1_ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 100)
+    b1 = k1_bound(1, 11, 14)
+    log(f"WAM graph: K1 at B=1 n=11 m=14 {k1_ms:.4f} ms (bound {b1[0]:.6f} ms, {b1[1]})")
+    return {"k1_ms": k1_ms, "k2_ms": {k: v[0] for k, v in times.items()},
+            "k3_ms": {k: v[1] for k, v in times.items()}}
+
+
+def graph_vs_planner(dev, inputs):
+    """The WAM graph of the planner's recipe in float64 on the card against
+    the port's planner on the same problem (make_problem, B = 1, the raw
+    field): linearize at the straight line, err within rtol 1e-12 and
+    H_diag, H_off, b within atol 1e-9; FactorGraph.optimize and
+    plan_batch (optimize_batch over traj_linearize) with the same LM
+    parameters end within rel 1e-9 of each other, with equal iterations.
+    Then the example's graph in float64, card against CPU: final error
+    within rel 1e-6, iterations equal."""
+    import torch
+    from gpmp2_tpu_torch.planner import (Trajectory, init_traj_straight_line, make_problem,
+                                         plan_batch, traj_linearize)
+    from gpmp2_tpu_torch.robots import generate_arm
+
+    f64 = torch.float64
+    _, sdf, setting, _, _, _ = inputs
+    params = wam_graph_params()
+    out = []
+    for k, where in enumerate((dev, torch.device("cpu"))):
+        robot = generate_arm("WAMArm", dtype=f64, device=where)
+        field = sdf.to(dtype=f64, device=where)
+        s, e = (torch.as_tensor(x, dtype=f64, device=where) for x in (BASE_START, BASE_GOAL))
+        line = init_traj_straight_line(robot.space, s, e, WAM_GRAPH_STEPS, 2.0)
+        if k == 0:
+            g = wam_graph(robot, field, s, e, recipe=True)
+            z = torch.zeros_like(s)[None]
+            probs = make_problem(robot, field, s[None], z, e[None], z, setting, sdf_pack=False)
+            batched = Trajectory(line.pose[None], line.vel[None])
+            got, ref = g.linearize(line), traj_linearize(probs, batched)
+            rel = abs(float(got[3]) - float(ref[3][0])) / float(ref[3][0])
+            worst = {part: float((a - r[0]).abs().max())
+                     for part, a, r in zip(("H_diag", "H_off", "b"), got, ref)}
+            log(f"WAM graph vs planner (f64, card): err {float(got[3]):.6e} rel diff {rel:.2e}, "
+                f"max|d| {worst}")
+            if not (rel <= 1e-12 and max(worst.values()) <= 1e-9):
+                raise AssertionError(f"WAM graph vs planner: err rel {rel}, max|d| {worst}")
+            res, res_p = g.optimize(line, params), plan_batch(probs, batched, params)
+            rel = abs(float(res.error) - float(res_p.error[0])) / float(res_p.error[0])
+            log(f"WAM graph optimize vs plan_batch (f64, card): final {float(res.error):.6f} / "
+                f"{float(res_p.error[0]):.6f} (rel {rel:.2e}), iterations "
+                f"{int(res.iterations)} / {int(res_p.iterations[0])}")
+            if not (rel <= 1e-9 and int(res.iterations) == int(res_p.iterations[0])):
+                raise AssertionError("WAM graph optimize and plan_batch disagree")
+        out.append(wam_graph(robot, field, s, e).optimize(line, params))
+        del field
+    card, cpu = out
+    rel = abs(float(card.error) - float(cpu.error)) / float(cpu.error)
+    log(f"WAM graph card vs CPU (f64): final error {float(card.error):.6f} / "
+        f"{float(cpu.error):.6f} (rel {rel:.2e}), iterations {int(card.iterations)} / "
+        f"{int(cpu.iterations)}")
+    if not (rel <= 1e-6 and int(card.iterations) == int(cpu.iterations)):
+        raise AssertionError("WAM graph: card and CPU disagree")
+
+
+def wam_graph_row(dev, card, inputs, packed):
+    """The example's WAM graph in float32 on the main path's field, packed:
+    gates are convergence and a finite trajectory, and K1, K2 and K3 each
+    launching in the timed optimize; the warm optimize's time (best of
+    GRAPH_REPEATS), attempts and launches, the eps = 0 collision cost, and
+    the same for plan_batch at B = 1 on the planner's recipe of the same
+    problem, printed on one JSON line."""
+    import torch
+    from gpmp2_tpu_torch.planner import (Trajectory, collision_cost, init_traj_straight_line,
+                                         make_problem, plan_batch)
+
+    robot, _, setting, _, _, _ = inputs
+    s, e = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (BASE_START, BASE_GOAL))
+    z = torch.zeros_like(s)[None]
+    probs = make_problem(robot, packed, s[None], z, e[None], z, setting)
+    line = init_traj_straight_line(robot.space, s, e, WAM_GRAPH_STEPS, 2.0)
+    g = wam_graph(robot, probs.sdf, s, e)
+    params = wam_graph_params()
+
+    def timed(solve):
+        solve()  # warm-up
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(GRAPH_REPEATS):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = solve()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+            launches = read_launches()
+        return res, best * 1e3, launches
+
+    res, ms, launches = timed(lambda: g.optimize(line, params))
+    for name, x in (("pose", res.traj.pose), ("vel", res.traj.vel), ("error", res.error)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"WAM graph f32: non-finite final {name}")
+    if not bool(res.converged) or bool(res.gave_up):
+        raise AssertionError(f"WAM graph f32 did not converge: {res.iterations} iterations")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"WAM graph f32: a kernel was not launched: {launches}")
+    batched = Trajectory(line.pose[None], line.vel[None])
+    res_p, ms_p, launches_p = timed(lambda: plan_batch(probs, batched, params))
+    row = {
+        "metric": "wam7_factor_graph", "dtype": "float32", "states": WAM_GRAPH_STEPS + 1,
+        "obstacle_factors": WAM_GRAPH_STEPS, "interpolated_factors": 90,
+        "optimize_ms": ms, "attempts": launches["btsolve"],
+        "iterations": int(res.iterations), "converged": bool(res.converged),
+        "final_error": float(res.error),
+        "collision_cost_eps0": float(collision_cost(probs, res.traj.pose[None])[0]),
+        "launches_per_optimize": launches,
+        "plan_batch_b1_ms": ms_p, "plan_batch_attempts": launches_p["btsolve"],
+        "plan_batch_iterations": int(res_p.iterations[0]),
+        "plan_batch_final_error": float(res_p.error[0]),
+        "plan_batch_launches": launches_p, "card": card,
+    }
+    log(json.dumps(row))
+
+
+def mobile_graph(dev, dtype):
+    """mobile_arm2_factor_graph.py's graph (SimpleTwoLinksArm on SE(2) x R^2,
+    20 steps, priors, Lie GP priors, an obstacle factor and vehicle
+    dynamics at every state) on a 120^2 planar field of one disc beside
+    its path (radius 0.3 at (0, 0.8), in range of the arm's tip; the grid
+    offset so that no path point lies on a grid line), and its straight
+    line."""
+    import torch
+    from gpmp2_tpu_torch.planner import FactorGraph, init_traj_straight_line
+    from gpmp2_tpu_torch.robots import generate_mobile_arm
+    from gpmp2_tpu_torch.utils import convert
+
+    n, cell, origin = 120, 0.05, np.array([-3.013, -3.021])
+    X, Y = np.meshgrid(origin[0] + cell * np.arange(n), origin[1] + cell * np.arange(n))
+    sdf = convert.planar_sdf_from_numpy(origin, cell, np.sqrt(X**2 + (Y - 0.8) ** 2) - 0.3,
+                                        dtype=dtype, device=dev)
+    marm = generate_mobile_arm("SimpleTwoLinksArm", dtype=dtype, device=dev)
+    N, T = 20, 5.0
+    start = torch.tensor([-1.0, 0.0, np.pi / 2, 0.0, 0.0], dtype=dtype, device=dev)
+    goal = torch.tensor([1.0, 0.0, np.pi / 2, 0.0, 0.0], dtype=dtype, device=dev)
+    zero = torch.zeros_like(start)
+    g = FactorGraph(marm.space, N + 1)
+    g.add_prior_pose(0, start, 1e-4)
+    g.add_prior_vel(0, zero, 1e-4)
+    g.add_prior_pose(N, goal, 1e-4)
+    g.add_prior_vel(N, zero, 1e-4)
+    for i in range(N + 1):
+        g.add_obstacle(i, marm, sdf, 0.1, 0.1)
+        g.add_vehicle_dynamics(i, 0.001)
+        if i > 0:
+            g.add_gp_prior(i - 1, i, T / N, np.eye(5))
+    return g, init_traj_straight_line(marm.space, start, goal, N, T)
+
+
+def mobile_graph_card_vs_cpu(dev):
+    """The mobile graph in float64 under GN, card against CPU: final error
+    within rel 1e-6, iterations equal; K1 and K3 launch on the card."""
+    import torch
+    from gpmp2_tpu_torch.solver.optimize import OptimizerParams
+
+    params = OptimizerParams(method="gaussnewton", max_iter=100, rel_thresh=1e-5)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        g, line = mobile_graph(where, torch.float64)
+        reset_launches()
+        out.append((float(g.error(line)), g.optimize(line, params), read_launches()))
+    (e0, card, launches), (e0_cpu, cpu, _) = out
+    rel = abs(float(card.error) - float(cpu.error)) / float(cpu.error)
+    log(f"mobile graph card vs CPU (f64, GN): initial error {e0:.6e} / {e0_cpu:.6e}, final "
+        f"{float(card.error):.6f} / {float(cpu.error):.6f} (rel {rel:.2e}), iterations "
+        f"{int(card.iterations)} / {int(cpu.iterations)}, card launches {launches}")
+    if not (rel <= 1e-6 and int(card.iterations) == int(cpu.iterations)):
+        raise AssertionError("mobile graph: card and CPU disagree")
+    if launches["btsolve"] == 0 or launches["sdf_lookup"] == 0:
+        raise AssertionError(f"mobile graph: K1 or K3 was not launched: {launches}")
+
+
+def multigraph_card_vs_cpu(dev):
+    """multi_graph_point_robot.py's graph (MultiObstacleDataset, the point
+    robot of radius 1.5, 4 chains of 20 steps drawn on the CPU from a
+    generator seeded 42, inter-chain edges with probability 0.5, seed 1)
+    in float64 on the card and on the CPU: multigraph_error before and
+    after within rel 1e-6, equal accepted steps, the same Dijkstra path;
+    K3 launches on the card."""
+    import torch
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.geometry.statespace import VectorSpace
+    from gpmp2_tpu_torch.kinematics import PointRobotFK, make_robot_model
+    from gpmp2_tpu_torch.planner import (build_planner_graph, edge_costs,
+                                         make_multigraph_problem, multigraph_error,
+                                         optimize_multigraph, sample_initializations,
+                                         shortest_path)
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    n_steps, total_time = 20, 10.0
+    dt = total_time / n_steps
+    start = torch.tensor([0.0, 0.0], dtype=f64)
+    goal = torch.tensor([17.0, 14.0], dtype=f64)
+    chains = sample_initializations(VectorSpace(2), start, goal, n_steps, total_time, np.eye(2),
+                                    4, torch.Generator().manual_seed(42))
+    pose0, vel0, edges = build_planner_graph(chains, (goal / n_steps) / dt, 0.5, 1)
+    ds = generate_2d_dataset("MultiObstacleDataset")
+    out = []
+    for where in (dev, cpu):
+        sdf = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=f64, device=where)
+        robot = make_robot_model(PointRobotFK(), [(0, 1.5, (0.0, 0.0, 0.0))], dtype=f64,
+                                 device=where)
+        z = torch.zeros(2, dtype=f64, device=where)
+        prob = make_multigraph_problem(robot, sdf, edges, start.to(where), z, goal.to(where), z,
+                                       dt=dt, Qc=np.eye(2), cost_sigma=0.5, epsilon=4.0,
+                                       obs_check_inter=1, dtype=f64)
+        P, V = (torch.as_tensor(x, dtype=f64, device=where) for x in (pose0, vel0))
+        reset_launches()
+        e0 = float(multigraph_error(prob, P, V))
+        pose, vel, err, iters, done = optimize_multigraph(prob, P, V)
+        path = shortest_path(prob.edges, *edge_costs(prob, pose, vel))
+        out.append((e0, float(err), int(iters), bool(done), path, read_launches()))
+    card, plain = out
+    rel0 = abs(card[0] - plain[0]) / plain[0]
+    rel1 = abs(card[1] - plain[1]) / plain[1]
+    log(f"multigraph card vs CPU (f64, {pose0.shape[0]} nodes, {edges.shape[0]} edges): initial "
+        f"error {card[0]:.6e} (rel {rel0:.2e}), final {card[1]:.6f} / {plain[1]:.6f} (rel "
+        f"{rel1:.2e}), steps {card[2]} / {plain[2]}, converged {card[3]} / {plain[3]}, path "
+        f"{card[4]}, card launches {card[5]}")
+    if not (rel0 <= 1e-6 and rel1 <= 1e-6 and card[2] == plain[2] and card[4] == plain[4]):
+        raise AssertionError("multigraph: card and CPU disagree")
+    if card[5]["sdf_lookup"] == 0:
+        raise AssertionError(f"multigraph: K3 was not launched: {card[5]}")
+
+
+def graph_phase(dev, card, inputs):
+    """Phase 12: K2 and K3 at the WAM graph's shapes, the WAM graph against
+    the planner and card against CPU, the float32 WAM graph row, the mobile
+    graph and the multigraph card against CPU."""
+    from gpmp2_tpu_torch.obstacle.sdf import pack_sdf
+
+    packed = pack_sdf(inputs[1])
+    check_graph_kernels(dev, inputs[0], packed)
+    graph_vs_planner(dev, inputs)
+    wam_graph_row(dev, card, inputs, packed)
+    del packed
+    mobile_graph_card_vs_cpu(dev)
+    multigraph_card_vs_cpu(dev)
+
+
 def main():
     import torch
 
@@ -1636,6 +2018,10 @@ def main():
     # 11. incremental replanning
     replan_phase(dev, card, inputs)
     log(f"replanning done at {time.perf_counter() - t_start:.1f} s")
+
+    # 12. the manual graphs
+    graph_phase(dev, card, inputs)
+    log(f"manual graphs done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "btsolve", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/btsolve.cu",

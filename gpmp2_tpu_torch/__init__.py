@@ -16,32 +16,55 @@ arms, with or without a torso lift; the presets of `generate_mobile_arm`,
 PR2 and Vector among them), 2D and 3D SDFs (corner-packed or raw, shared
 or one world per problem), joint and velocity limits, the GP prior and
 interpolated obstacle factors, self-collision, workspace priors and the
-end-effector goal, the float64 give-up rescue, and incremental replanning
+end-effector goal, the float64 give-up rescue, incremental replanning
 (`ISAM2TrajOptimizer`, and `ISAM2BatchSessions` for a fleet of sessions
-solved as one batch).
+solved as one batch), the hand-built graphs (`FactorGraph` over a
+support-state chain, the multi-chain planner graphs of
+`planner/multigraph.py`), GP densification (`interpolate_traj`), the
+vehicle-dynamics residuals, and file IO, timing and buffer interop
+(`utils`).
 """
 
+from . import (datasets, dynamics, geometry, gp, kinematics, obstacle, planner,  # noqa: F401
+               robots, solver, utils)
 from .datasets import (generate_2d_dataset, generate_3d_dataset,
                        planar_sdf_from_occupancy, sdf_from_occupancy)
-from .kinematics.fk import (ArmFK, PointRobotFK, Pose2Mobile2ArmsFK, Pose2MobileArmFK,
-                            Pose2MobileBaseFK, Pose2MobileVetLin2ArmsFK, Pose2MobileVetLinArmFK)
-from .kinematics.robot import RobotModel, make_robot_model
-from .obstacle.sdf import PlanarSDF, SignedDistanceField
-from .planner import (ISAM2BatchSessions, ISAM2TrajOptimizer, Trajectory,
-                      TrajOptimizerSetting, TrajProblem, batch_traj_optimize,
-                      collision_cost, make_problem, plan_batch, set_workspace_prior)
-from .robots import generate_arm, generate_mobile_arm, generate_mobile_base
-from .solver.optimize import OptimizerParams, OptResult
+from .geometry import SE2Space, SE2VectorSpace, StateSpace, VectorSpace
+from .kinematics import (ArmFK, PointRobotFK, Pose2Mobile2ArmsFK, Pose2MobileArmFK,
+                         Pose2MobileBaseFK, Pose2MobileVetLin2ArmsFK, Pose2MobileVetLinArmFK,
+                         RobotModel, goal_factor_error, hinge_limit_cost, joint_limit_error,
+                         make_robot_model, sphere_centers_world, velocity_limit_error,
+                         workspace_orientation_error, workspace_pose_error,
+                         workspace_position_error)
+from .obstacle import (PlanarSDF, SignedDistanceField, hinge_loss, obstacle_factor_error,
+                       obstacle_planar_factor_error, planar_sdf_lookup, sdf_lookup,
+                       self_collision_error)
+from .ops.btsolve import batched_block_tridiag_solve
+from .planner import (FactorGraph, ISAM2BatchSessions, ISAM2TrajOptimizer, Trajectory,
+                      TrajOptimizerSetting, TrajProblem, batch_traj_optimize, collision_cost,
+                      collision_cost_batch, init_traj_straight_line, interpolate_traj,
+                      make_problem, plan_batch, set_workspace_prior)
+from .robots import (ARM_PRESETS, MOBILE_PRESETS, generate_arm, generate_mobile_arm,
+                     generate_mobile_base)
+from .solver import OptimizerParams, OptResult, optimize_batch
+from .utils import (Timer, buffer_to_trajectory, load_sdf, read_sdf_vol_file, save_sdf,
+                    trajectory_to_buffer)
 
 __all__ = [
     "generate_2d_dataset", "generate_3d_dataset", "planar_sdf_from_occupancy",
-    "sdf_from_occupancy", "ArmFK", "PointRobotFK", "Pose2MobileBaseFK",
-    "Pose2MobileArmFK", "Pose2Mobile2ArmsFK", "Pose2MobileVetLinArmFK",
-    "Pose2MobileVetLin2ArmsFK", "RobotModel",
-    "make_robot_model", "PlanarSDF", "SignedDistanceField", "Trajectory",
-    "TrajOptimizerSetting", "TrajProblem", "batch_traj_optimize",
-    "collision_cost", "make_problem", "plan_batch", "set_workspace_prior",
-    "ISAM2TrajOptimizer", "ISAM2BatchSessions",
-    "generate_arm", "generate_mobile_arm", "generate_mobile_base",
-    "OptimizerParams", "OptResult",
+    "sdf_from_occupancy", "StateSpace", "VectorSpace", "SE2Space", "SE2VectorSpace",
+    "ArmFK", "PointRobotFK", "Pose2MobileBaseFK", "Pose2MobileArmFK", "Pose2Mobile2ArmsFK",
+    "Pose2MobileVetLinArmFK", "Pose2MobileVetLin2ArmsFK", "RobotModel", "make_robot_model",
+    "sphere_centers_world", "goal_factor_error", "hinge_limit_cost", "joint_limit_error",
+    "velocity_limit_error", "workspace_orientation_error", "workspace_pose_error",
+    "workspace_position_error", "PlanarSDF", "SignedDistanceField", "hinge_loss",
+    "obstacle_factor_error", "obstacle_planar_factor_error", "planar_sdf_lookup",
+    "sdf_lookup", "self_collision_error", "batched_block_tridiag_solve", "FactorGraph",
+    "ISAM2TrajOptimizer", "ISAM2BatchSessions", "Trajectory", "TrajOptimizerSetting",
+    "TrajProblem", "batch_traj_optimize", "collision_cost", "collision_cost_batch",
+    "init_traj_straight_line", "interpolate_traj", "make_problem", "plan_batch",
+    "set_workspace_prior", "ARM_PRESETS", "MOBILE_PRESETS", "generate_arm",
+    "generate_mobile_arm", "generate_mobile_base", "OptimizerParams", "OptResult",
+    "optimize_batch", "Timer", "buffer_to_trajectory", "load_sdf", "read_sdf_vol_file",
+    "save_sdf", "trajectory_to_buffer",
 ]

@@ -22,12 +22,12 @@ from ..kinematics.fk import num_links_of
 from ..kinematics.robot import RobotModel
 from ..obstacle.sdf import PlanarSDF, SignedDistanceField, pack_planar_sdf, pack_sdf
 from ..solver.optimize import OptimizerParams, OptResult, optimize_batch
-from .problem import Trajectory, TrajProblem, traj_linearize
+from .problem import Trajectory, TrajProblem, collision_cost, traj_linearize
 from .settings import TrajOptimizerSetting
 from .traj_utils import init_traj_straight_line
 
 __all__ = ["make_problem", "set_workspace_prior", "plan_batch", "batch_traj_optimize",
-           "optimizer_params_from_setting", "SDF_PACK_BUDGET"]
+           "optimizer_params_from_setting", "collision_cost_batch", "SDF_PACK_BUDGET"]
 
 # bytes of packed table that `make_problem` builds by default (the JAX
 # package's default budget, gpmp2_tpu/planner/batch.py:46-66)
@@ -249,6 +249,7 @@ def optimizer_params_from_setting(setting: TrajOptimizerSetting) -> OptimizerPar
         max_iter=setting.max_iter,
         rel_thresh=setting.rel_thresh,
         iter_no_increase=setting.final_iter_no_increase,
+        verbosity=setting.verbosity,
     )
 
 
@@ -352,3 +353,10 @@ def batch_traj_optimize(
     return OptResult(Trajectory(res.traj.pose[0], res.traj.vel[0]),
                      res.error[0], res.iterations[0], res.converged[0],
                      res.gave_up[0])
+
+
+def collision_cost_batch(problems: TrajProblem, traj: Trajectory):
+    """The batched CollisionCost metric (BatchTrajOptimizer-inl.h:87-100) of
+    each problem's trajectory: (B,). `collision_cost` is batched already;
+    this is its name in the JAX package's planner API."""
+    return collision_cost(problems, traj.pose)

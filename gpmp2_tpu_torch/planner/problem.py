@@ -56,6 +56,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from ..dynamics import simple_2d_vehicle_dynamics_pose2, simple_2d_vehicle_dynamics_vector3
 from ..gp.gputils import calc_Q_inv
 from ..gp.interpolator import InterpCoeffs, interp_coeffs, interpolate_pose
 from ..gp.prior import gp_prior_error, gp_prior_jacobians_linear
@@ -195,12 +196,11 @@ class TrajProblem:
 
 
 class _SE2Block(NamedTuple):
-    """The SE(2) block of an SE(2) x R^n problem, as the Lie Jacobian
-    helpers read a problem: its space, dt and interpolation coefficients."""
+    """The SE(2) block of an SE(2) x R^n problem, as the Lie GP prior's
+    Jacobian helper reads a problem: its space and dt."""
 
     space: StateSpace
     dt: torch.Tensor
-    interp: InterpCoeffs
 
 
 def _se2_cols(d, device, k=2):
@@ -215,10 +215,7 @@ def _vec_cols(d, device, k=2):
 
 
 def _se2_block(prob) -> _SE2Block:
-    idx = _se2_cols(prob.space.dim, prob.dt.device)
-    lam, psi = prob.interp
-    return _SE2Block(SE2Space(), prob.dt, InterpCoeffs(lam[..., idx[:, None], idx],
-                                                       psi[..., idx[:, None], idx]))
+    return _SE2Block(SE2Space(), prob.dt)
 
 
 def _interp_confs(prob: TrajProblem, pose, vel):
@@ -245,23 +242,26 @@ def _collision_confs(prob: TrajProblem, pose, vel):
     return torch.cat([pose, confs.reshape(B, -1, d)], dim=1)
 
 
-def _spheres_and_jac(prob: TrajProblem, confs):
-    """Sphere centres (B, C, S, 3) and their Jacobians (B, C, S, 3, d) for
-    configurations (B, C, d): kernel K2 for arms, the closed forms of
-    kinematics/robot.py for the other families."""
-    if isinstance(prob.robot.fk, ArmFK):
-        return arm_fk_spheres_batched(prob.robot, confs)
-    return sphere_centers_and_jac(prob.robot, confs)
+def _spheres_and_jac(robot: RobotModel, confs):
+    """Sphere centres (..., S, 3) and their Jacobians (..., S, 3, d) for
+    configurations (..., d): kernel K2 for arms, the closed forms of
+    kinematics/robot.py for the other families. The planner and the
+    manual graphs (planner/factor_graph.py, planner/multigraph.py) share
+    it."""
+    if isinstance(robot.fk, ArmFK):
+        return arm_fk_spheres_batched(robot, confs)
+    return sphere_centers_and_jac(robot, confs)
 
 
-def _obs_res_and_jac(prob: TrajProblem, centers, Jc):
-    """Hinge residuals (B, C, S) and Jacobians (B, C, S, d) of sphere
-    centres and their Jacobians: one SDF lookup (K3), then -g . J on
-    active spheres; inactive and out-of-range rows are zero
+def _obs_res_and_jac(robot: RobotModel, sdf, eps, centers, Jc):
+    """Hinge residuals (..., S) and Jacobians (..., S, d) of sphere centres
+    and their Jacobians: one SDF lookup (K3), then -g . J on active
+    spheres; inactive and out-of-range rows are zero
     (ObstacleSDFFactor-inl.h:40-57, ObstaclePlanarSDFFactor-inl.h:40-55,
-    ObstacleCost.h:31-49)."""
-    eps_total = prob.robot.sphere_radii + prob.eps  # (S,)
-    dist, gx, gy, *gz, ok = sdf_lookup_points(prob.sdf, centers)
+    ObstacleCost.h:31-49). The lookup's leading axis is the world axis on
+    a per-problem field."""
+    eps_total = robot.sphere_radii + eps  # (S,)
+    dist, gx, gy, *gz, ok = sdf_lookup_points(sdf, centers)
     dot = gx[..., None] * Jc[..., 0, :] + gy[..., None] * Jc[..., 1, :]
     if gz:
         dot = dot + gz[0][..., None] * Jc[..., 2, :]
@@ -272,12 +272,12 @@ def _obs_res_and_jac(prob: TrajProblem, centers, Jc):
     return r, J
 
 
-def _obs_err(prob: TrajProblem, centers):
-    """Hinge residuals (B, C, S) of sphere centres (B, C, S, 3), without
+def _obs_err(robot: RobotModel, sdf, eps, centers):
+    """Hinge residuals (..., S) of sphere centres (..., S, 3), without
     Jacobians: the error-only twin of `_obs_res_and_jac`, through the same
     lookup."""
-    dist, *_, ok = sdf_lookup_points(prob.sdf, centers)
-    return hinge_loss(dist, prob.robot.sphere_radii + prob.eps, ok)
+    dist, *_, ok = sdf_lookup_points(sdf, centers)
+    return hinge_loss(dist, robot.sphere_radii + eps, ok)
 
 
 def _selfcoll_res(prob: TrajProblem, centers):
@@ -409,20 +409,24 @@ def _dyn_residual(prob: TrajProblem, pose, vel):
     J = torch.zeros(pose.shape[:-1] + (1, 2 * d), dtype=pose.dtype, device=pose.device)
     J[..., 0, d + 1] = 1.0
     if not prob.space.is_vector:
-        return vel[..., 1:2], J
+        return simple_2d_vehicle_dynamics_pose2(vel)[..., None], J
     c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
     vx, vy = vel[..., 0], vel[..., 1]
     J[..., 0, 2] = -vy * s - vx * c
     J[..., 0, d] = -s
     J[..., 0, d + 1] = c
-    return (vy * c - vx * s)[..., None], J
+    return simple_2d_vehicle_dynamics_vector3(pose, vel)[..., None], J
 
 
-def _split_tangent(space, z, p1, v1, p2, v2):
-    """The two states of an interval perturbed by z = [dp1, dv1, dp2, dv2]."""
+def _split_tangent(space, z, *states):
+    """States (p1, v1[, p2, v2, ...]) perturbed by z = [dp1, dv1, ...]: each
+    pose retracted by its block, each velocity moved by its block."""
     d = space.dim
-    return (space.retract(p1, z[:d]), v1 + z[d:2 * d],
-            space.retract(p2, z[2 * d:3 * d]), v2 + z[3 * d:])
+    out = []
+    for k in range(0, len(states), 2):
+        out += [space.retract(states[k], z[k * d:(k + 1) * d]),
+                states[k + 1] + z[(k + 1) * d:(k + 2) * d]]
+    return tuple(out)
 
 
 def _flat_ends(pose, vel):
@@ -492,40 +496,56 @@ def _interp_pose_jacobians(prob: TrajProblem, pose, vel, pt0):
     (gpmp2_tpu/planner/problem.py:689-702)."""
     B, n, d = pose.shape
     T = pt0.shape[2]
-    space = prob.space
+    J = _interval_interp_jacobians(prob.space, prob.interp, _flat_ends(pose, vel),
+                                  pt0.reshape(-1, T, d))
+    return J.reshape(B, n - 1, T, d, 4 * d)
+
+
+def _interval_interp_jacobians(space, coeffs: InterpCoeffs, ends, pt0):
+    """d local(pt0, pose(tau; z)) / dz (L, T, d, 4d) of L intervals, each
+    with ends (x1, v1, x2, v2) (L, d) perturbed by z = [dx1, dv1, dx2, dv2],
+    at their interpolated poses pt0 (L, T, d): Lambda and Psi (T, 2d, 2d)
+    shared by the intervals (the planner) or (L, T, 2d, 2d) each their own
+    (the manual graphs). On a Lie space by torch.func.jacfwd; on SE(2) x
+    R^n the SE(2) block only (`_se2_vector_interp_jacobians`)."""
     if space.kind == "se2_vector":
-        return _se2_vector_interp_jacobians(prob, pose, vel, pt0)
+        return _se2_vector_interp_jacobians(coeffs, ends, pt0)
+    d = space.dim
 
     def mid(z, p1, v1, p2, v2, lam, psi, p0):
         pt = interpolate_pose(space, InterpCoeffs(lam, psi),
                               *_split_tangent(space, z, p1, v1, p2, v2))
         return space.local(p0, pt)
 
+    c = None if coeffs.lam.dim() == 3 else 0
     per_tau = vmap(jacfwd(mid), in_dims=(None,) * 5 + (0, 0, 0))
-    per_interval = vmap(per_tau, in_dims=(None, 0, 0, 0, 0, None, None, 0))
-    z = torch.zeros(4 * d, dtype=pose.dtype, device=pose.device)
-    J = per_interval(z, *_flat_ends(pose, vel), prob.interp.lam, prob.interp.psi,
-                     pt0.reshape(-1, T, d))
-    return J.reshape(B, n - 1, T, d, 4 * d)
+    per_interval = vmap(per_tau, in_dims=(None, 0, 0, 0, 0, c, c, 0))
+    z = torch.zeros(4 * d, dtype=pt0.dtype, device=pt0.device)
+    return per_interval(z, *ends, coeffs.lam, coeffs.psi, pt0)
 
 
-def _se2_vector_interp_jacobians(prob: TrajProblem, pose, vel, pt0):
-    """J_mid on SE(2) x R^n, block by block: the SE(2) rows from the SE(2)
-    interpolation of the first three dims, and the constant R^n rows of
+def _se2_vector_interp_jacobians(coeffs: InterpCoeffs, ends, pt0):
+    """The interpolation Jacobian on SE(2) x R^n, block by block: the SE(2)
+    rows from the SE(2) interpolation of the first three dims, and the
+    constant R^n rows of
     q(tau) = x1 + Lambda[q, d:] v1 + Psi[q, :d] (x2 - x1) + Psi[q, d:] v2
     wrt [dx1, dv1, dx2, dv2] of the R^n dims (the cross blocks vanish with
     Lambda and Psi of the form (2 x 2) (x) I_d)."""
-    B, n, d = pose.shape
-    T = pt0.shape[2]
-    Js = _interp_pose_jacobians(_se2_block(prob), pose[..., :3], vel[..., :3], pt0[..., :3])
-    lam, psi = prob.interp
-    q = torch.arange(3, d, device=pose.device)
-    eye = torch.eye(d - 3, dtype=pose.dtype, device=pose.device)
-    Jq = torch.cat([eye - psi[:, q[:, None], q], lam[:, q[:, None], d + q],
-                    psi[:, q[:, None], q], psi[:, q[:, None], d + q]], dim=-1)  # (T, d-3, 4(d-3))
-    J = torch.zeros((B, n - 1, T, d, 4 * d), dtype=pose.dtype, device=pose.device)
-    J[..., :3, _se2_cols(d, pose.device, 4)] = Js
-    J[..., 3:, _vec_cols(d, pose.device, 4)] = Jq
+    L, T, d = pt0.shape
+    dev = pt0.device
+    lam, psi = coeffs
+    idx = _se2_cols(d, dev)
+    Js = _interval_interp_jacobians(
+        SE2Space(), InterpCoeffs(lam[..., idx[:, None], idx], psi[..., idx[:, None], idx]),
+        tuple(e[..., :3] for e in ends), pt0[..., :3])
+    q = torch.arange(3, d, device=dev)
+    eye = torch.eye(d - 3, dtype=pt0.dtype, device=dev)
+    Jq = torch.cat([eye - psi[..., q[:, None], q], lam[..., q[:, None], d + q],
+                    psi[..., q[:, None], q], psi[..., q[:, None], d + q]],
+                   dim=-1)  # ([L,] T, d-3, 4(d-3))
+    J = torch.zeros((L, T, d, 4 * d), dtype=pt0.dtype, device=dev)
+    J[..., :3, _se2_cols(d, dev, 4)] = Js
+    J[..., 3:, _vec_cols(d, dev, 4)] = Jq
     return J
 
 
@@ -559,7 +579,7 @@ def traj_error(prob: TrajProblem, traj: Trajectory):
             prob.robot.fk, pose[:, prob.N], prob.goal_point))
     err = err + quad_err_full(prob.gp_precision, _gp_residual(prob, pose, vel))
     centers = sphere_centers_world(prob.robot, _collision_confs(prob, pose, vel))
-    err = err + quad_err_diag(prob.obs_w, _obs_err(prob, centers))
+    err = err + quad_err_diag(prob.obs_w, _obs_err(prob.robot, prob.sdf, prob.eps, centers))
     for lim in _limit_residuals(prob, pose, vel):
         if lim is not None:
             err = err + quad_err_diag(lim[1], lim[0])
@@ -630,8 +650,8 @@ def traj_linearize(prob: TrajProblem, traj: Trajectory):
     # one SDF lookup ------------------------------------------------------
     T = prob.taus.shape[0]
     all_confs = _collision_confs(prob, pose, vel)
-    centers, Jc = _spheres_and_jac(prob, all_confs)
-    r_all, J_all = _obs_res_and_jac(prob, centers, Jc)
+    centers, Jc = _spheres_and_jac(prob.robot, all_confs)
+    r_all, J_all = _obs_res_and_jac(prob.robot, prob.sdf, prob.eps, centers, Jc)
     S = r_all.shape[-1]
     add_pose_factor(slice(None), r_all[:, :n], J_all[:, :n], prob.obs_w)
 
@@ -707,8 +727,8 @@ def collision_cost(prob: TrajProblem, poses):
     """Sum of raw (unwhitened, eps = 0) obstacle errors over the given poses
     (B, n, d) -> (B,): the reference's trajectory-quality metric
     (BatchTrajOptimizer-inl.h:87-100)."""
-    prob0 = dataclasses.replace(prob, eps=torch.zeros_like(prob.eps))
-    return _obs_err(prob0, sphere_centers_world(prob.robot, poses)).reshape(
+    centers = sphere_centers_world(prob.robot, poses)
+    return _obs_err(prob.robot, prob.sdf, torch.zeros_like(prob.eps), centers).reshape(
         poses.shape[0], -1).sum(-1)
 
 

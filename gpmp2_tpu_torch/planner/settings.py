@@ -8,9 +8,7 @@ with identical defaults (TrajOptimizerSetting.cpp:15-56):
   obs_check_inter 5, Dogleg optimizer, max_iter 50, rel_thresh 1e-2,
   conf/vel prior sigma 1e-4, Qc = identity, limits off (position limits
   -/+1e6, velocity limit 1e6), pos/vel limit sigma 1e-3, limit thresh
-  1e-3, final_iter_no_increase true.
-
-The verbosity trace is a later slice.
+  1e-3, final_iter_no_increase true, verbosity none.
 
 Noise models are expressed directly as sigmas (the reference wraps them in
 gtsam noise models; the solver consumes precisions 1/sigma^2).
@@ -58,6 +56,9 @@ class TrajOptimizerSetting:
     final_iter_no_increase: bool = True
     rel_thresh: float = 1e-2
     max_iter: int = 50
+    # per-attempt trace (reference verbosity enum None/Error,
+    # TrajOptimizerSetting.h:21; printouts BatchTrajOptimizer.cpp:235-282)
+    verbosity: str = "none"  # 'none' | 'error'
 
     def __post_init__(self):
         d = self.dof
@@ -86,3 +87,12 @@ class TrajOptimizerSetting:
             if self.Qc.ndim == 0:
                 self.Qc = float(self.Qc) * np.eye(d)
         assert self.opt_type in ("gaussnewton", "lm", "dogleg")
+        assert self.verbosity in ("none", "error")
+
+    def set_verbosity_error(self):
+        """Per-attempt error trace (ref setVerbosityError,
+        TrajOptimizerSetting.h:77)."""
+        self.verbosity = "error"
+
+    def set_verbosity_none(self):
+        self.verbosity = "none"

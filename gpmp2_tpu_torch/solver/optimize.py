@@ -15,7 +15,10 @@ semantics of its `step` kept exactly:
     absolute decrease <= absTol, or the relative decrease <= relTol;
   - a non-finite step is zeroed and the lane rejected; `gave_up` (the lane
     stopped without converging) is tracked apart from `converged`;
-  - GN with `iter_no_increase` reverts a final increasing step.
+  - GN with `iter_no_increase` reverts a final increasing step;
+  - `verbosity='error'` prints one line per attempt with the fields and
+    format of the JAX package's trace (gpmp2_tpu/solver/optimize.py:407-416;
+    reference verbosity Error, TrajOptimizerSetting.h:21).
 
 Each attempt solves at the carried linearization, linearizes the
 candidate once (which yields its error), and accepts or rejects per lane.
@@ -57,6 +60,8 @@ class OptimizerParams:
     delta_init: float = 0.2
     delta_min: float = 1e-5
     reject_budget: int = 14  # extra attempts to absorb rejected LM / Dogleg steps
+    # per-attempt trace: 'none' | 'error' (reference verbosity enum)
+    verbosity: str = "none"
     # plan_batch re-solves the lanes that gave up in float64
     # (planner/batch.py:_rescue_gave_up_f64)
     rescue_f64: bool = False
@@ -131,6 +136,8 @@ def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
     method = params.method
     if method not in ("lm", "gaussnewton", "dogleg"):
         raise ValueError(f"unknown optimizer {method!r}")
+    if params.verbosity not in ("none", "error"):
+        raise ValueError(f"unknown verbosity {params.verbosity!r}")
 
     traj = traj0
     lin = linearize_fn(traj)
@@ -200,6 +207,11 @@ def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
         converged = converged | conv_now
         gave_up = gave_up | gave
         iters = iters + accept.to(torch.int32)
+        if params.verbosity == "error":
+            print(f"[optimize] accepted {int(accept.sum())}/{B} "
+                  f"err(mean) {float(err.mean()):.6g} tr(mean) {float(tr.mean()):.4g} "
+                  f"active {int(active.sum())} converged {int(converged.sum())} "
+                  f"gave_up {int(gave_up.sum())}", flush=True)
 
     if params.iter_no_increase and method == "gaussnewton":
         increased = err > prev_err

@@ -18,3 +18,30 @@ def test_import_leaves_jax_out():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imported_modules(path):
+    """Every module an `import` or `from ... import` statement names in a
+    script, anywhere in it (inside functions too)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_scripts_leave_jax_out():
+    import glob
+
+    scripts = sorted(glob.glob(os.path.join(REPO, "examples_torch", "*.py")))
+    scripts += [os.path.join(REPO, "chip_smoke.py"),
+                os.path.join(REPO, "tools", "profile_torch_main.py")]
+    assert len(scripts) >= 9
+    for path in scripts:
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in ("jax", "jaxlib", "gpmp2_tpu")]
+        assert not bad, (path, bad)

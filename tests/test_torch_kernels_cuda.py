@@ -357,3 +357,157 @@ def test_mobile_base_linearize_card_matches_cpu(cuda_device):
         out.append([t.cpu() for t in traj_linearize(probs, traj)])
     for name, a, b in zip(("H_diag", "H_off", "b", "err"), *out):
         assert torch.allclose(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max())), name
+
+
+def _graph_launches():
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
+    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+
+    return (block_tridiag_solve_cuda.launches, arm_fk_spheres_cuda.launches,
+            sdf_lookup_cuda.launches)
+
+
+def _ball_field(dev, dtype):
+    """A 40^3 field (cell 0.1 m) of one ball in the WAM's workspace."""
+    from gpmp2_tpu_torch.utils import convert
+
+    n, cell, origin = 40, 0.1, np.array([-2.013, -2.021, -1.007])
+    Z, Y, X = np.meshgrid(*(origin[k] + cell * np.arange(n) for k in (2, 1, 0)),
+                          indexing="ij")
+    data = np.sqrt((X - 0.3) ** 2 + (Y + 0.2) ** 2 + (Z - 0.4) ** 2) - 0.3
+    return convert.sdf_from_numpy(origin, cell, data, dtype=dtype, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_factor_graph_card_matches_cpu(cuda_device, dtype):
+    """A WAM FactorGraph (4 states, 2 interpolated factors per interval) on
+    a small 3D field: error and linearize on the card against the CPU's
+    plain path (float64: rtol 1e-9; float32: 1e-4 of each array's scale,
+    the error 1e-5),
+    each obstacle group launching K2 and K3 once per linearize, never the
+    plain versions; optimize ends with equal iterations."""
+    from gpmp2_tpu_torch.planner import FactorGraph, Trajectory, init_traj_straight_line
+    from gpmp2_tpu_torch.robots import generate_arm
+    from gpmp2_tpu_torch.solver.optimize import OptimizerParams
+
+    start = np.array([-0.8, -1.70, 1.64, 1.29, 1.1, -0.106, 2.2])
+    goal = np.array([-0.0, 0.94, 0.0, 1.6, 0.0, -0.919, 1.55])
+    noise = np.random.default_rng(5).normal(size=(2, 4, 7))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+        robot, sdf = generate_arm("WAMArm", dtype=dtype, device=dev), _ball_field(dev, dtype)
+        g = FactorGraph(robot.space, 4)
+        g.add_prior_pose(0, f(start), 1e-3).add_prior_vel(0, f(np.zeros(7)), 1e-3)
+        g.add_prior_pose(3, f(goal), 1e-3).add_prior_vel(3, f(np.zeros(7)), 1e-3)
+        for i in range(4):
+            g.add_obstacle(i, robot, sdf, 0.05, 0.2)
+        for i in range(3):
+            g.add_gp_prior(i, i + 1, 0.5, np.eye(7))
+            for tau in (0.15, 0.3):
+                g.add_obstacle_gp(i, i + 1, robot, sdf, 0.05, 0.2, np.eye(7), 0.5, tau)
+        line = init_traj_straight_line(robot.space, f(start), f(goal), 3, 1.5)
+        traj = Trajectory(line.pose + 0.1 * f(noise[0]), line.vel + 0.1 * f(noise[1]))
+        before = _graph_launches()
+        lin = [t.cpu() for t in g.linearize(traj)]
+        after = _graph_launches()
+        res = g.optimize(line, OptimizerParams(method="lm", max_iter=30, rel_thresh=1e-4))
+        out.append((lin, float(g.error(traj)), int(res.iterations), before, after))
+    (lin_c, err_c, it_c, before, after), (lin_p, err_p, it_p, *_) = out
+    assert after[1] - before[1] == 2 and after[2] - before[2] == 2  # K2, K3: two groups
+    tol = 1e-9 if dtype == torch.float64 else 1e-5
+    assert abs(err_c - err_p) <= tol * err_p
+    for name, a, b in zip(("H_diag", "H_off", "b", "err"), lin_c, lin_p):
+        if dtype == torch.float64:
+            assert torch.allclose(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max())), name
+        else:
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    if dtype == torch.float64:
+        assert it_c == it_p
+
+
+@pytest.mark.cuda
+def test_mobile_factor_graph_card_matches_cpu(cuda_device):
+    """An SE(2) x R^2 FactorGraph (vehicle dynamics, joint limits, the Lie
+    interpolation of two factors per interval) beside a disc, float64: the
+    card's linearize (K3, no K2: the mobile FK is plain torch) against the
+    CPU's at rtol 1e-9."""
+    from gpmp2_tpu_torch.planner import FactorGraph, Trajectory, init_traj_straight_line
+    from gpmp2_tpu_torch.robots import generate_mobile_arm
+    from gpmp2_tpu_torch.utils import convert
+
+    n, cell, origin = 120, 0.05, np.array([-3.013, -3.021])
+    X, Y = np.meshgrid(origin[0] + cell * np.arange(n), origin[1] + cell * np.arange(n))
+    data = np.sqrt((X - 0.5) ** 2 + (Y - 0.2) ** 2) - 0.4
+    start = np.array([-0.6, -0.3, 0.2, 0.1, -0.3])
+    goal = np.array([0.9, 0.5, 0.6, 0.4, 0.2])
+    noise = np.random.default_rng(6).normal(size=(2, 4, 5))
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        robot = generate_mobile_arm("SimpleTwoLinksArm", dtype=torch.float64, device=dev)
+        sdf = convert.planar_sdf_from_numpy(origin, cell, data, dtype=torch.float64, device=dev)
+        g = FactorGraph(robot.space, 4)
+        g.add_prior_pose(0, f(start), 1e-2).add_prior_pose(3, f(goal), 1e-2)
+        for i in range(4):
+            g.add_obstacle(i, robot, sdf, 0.1, 0.2).add_vehicle_dynamics(i, 0.05)
+            g.add_joint_limit(i, -0.2 * np.ones(5), 0.3 * np.ones(5), 1e-3, 0.01)
+        for i in range(3):
+            g.add_gp_prior(i, i + 1, 1.0, np.eye(5))
+            for tau in (0.3, 0.6):
+                g.add_obstacle_gp(i, i + 1, robot, sdf, 0.1, 0.2, np.eye(5), 1.0, tau)
+        line = init_traj_straight_line(robot.space, f(start), f(goal), 3, 3.0)
+        traj = Trajectory(line.pose + 0.15 * f(noise[0]), line.vel + 0.15 * f(noise[1]))
+        before = _graph_launches()
+        out.append(([t.cpu() for t in g.linearize(traj)], before, _graph_launches()))
+    (lin_c, before, after), (lin_p, *_) = out
+    assert after[1] == before[1] and after[2] - before[2] == 2
+    for name, a, b in zip(("H_diag", "H_off", "b", "err"), lin_c, lin_p):
+        assert torch.allclose(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max())), name
+
+
+@pytest.mark.cuda
+def test_multigraph_card_matches_cpu(cuda_device):
+    """A small point-robot planner graph (3 chains of 6 steps, inter-chain
+    edges) beside a disc, float64: the graph error, the dense whitened
+    system (its obstacle rows through K3) and the LM result on the card
+    against the CPU."""
+    from gpmp2_tpu_torch.kinematics import PointRobotFK, make_robot_model
+    from gpmp2_tpu_torch.planner import (build_planner_graph, make_multigraph_problem,
+                                         multigraph_error, optimize_multigraph)
+    from gpmp2_tpu_torch.planner.multigraph import _whitened_system
+    from gpmp2_tpu_torch.utils import convert
+
+    n, cell, origin = 80, 0.1, np.array([-1.013, -1.021])
+    X, Y = np.meshgrid(origin[0] + cell * np.arange(n), origin[1] + cell * np.arange(n))
+    data = np.sqrt((X - 3.0) ** 2 + (Y - 2.4) ** 2) - 1.0
+    rng = np.random.default_rng(7)
+    t = np.linspace(0.0, 1.0, 7)[:, None]
+    chains = np.stack([t * [6.0, 5.0] + 0.6 * rng.normal(size=(7, 2)) * np.sin(np.pi * t)
+                       for _ in range(3)])
+    pose0, vel0, edges = build_planner_graph(chains, [1.0, 0.8], 0.5, 3)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        f = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)  # noqa: E731
+        robot = make_robot_model(PointRobotFK(), [(0, 0.5, (0.0, 0.0, 0.0))],
+                                 dtype=torch.float64, device=dev)
+        sdf = convert.planar_sdf_from_numpy(origin, cell, data, dtype=torch.float64, device=dev)
+        z = f(np.zeros(2))
+        prob = make_multigraph_problem(robot, sdf, edges, z, z, f([6.0, 5.0]), z, dt=1.0,
+                                       Qc=np.eye(2), cost_sigma=0.2, epsilon=0.5,
+                                       obs_check_inter=2, dtype=torch.float64)
+        P, V = f(pose0), f(vel0)
+        before = _graph_launches()
+        r, J = _whitened_system(prob, P, V)
+        after = _graph_launches()
+        res = optimize_multigraph(prob, P, V)
+        out.append((float(multigraph_error(prob, P, V)), r.cpu(), J.cpu(), float(res[2]),
+                    int(res[3]), after[2] - before[2]))
+    card, plain = out
+    assert card[5] == 2  # K3: the node and the interpolated obstacle rows
+    assert abs(card[0] - plain[0]) <= 1e-9 * plain[0]
+    for a, b in ((card[1], plain[1]), (card[2], plain[2])):
+        assert torch.allclose(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))
+    assert card[4] == plain[4] and abs(card[3] - plain[3]) <= 1e-6 * plain[3]
