@@ -110,7 +110,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    own asserts, K1 and K3 launch in every one and K2 in the five arm
    scripts, the card's final error is finite and within rel 1e-3 of the
    CPU's, the card converges where the CPU does, and the two loops reach
-   their goal (or settle) on the card exactly when on the CPU.
+   their goal (or settle) on the card exactly when on the CPU;
+14. long horizons and the mesh: bench_longhorizon.py's protocol (its
+   random SPD systems from numpy seed 0, B = 256, m = 14, float32, at
+   n = 65, 129, 257 and 1025): K1 and the partitioned solve (P = max(2,
+   min(64, n // 64)); its separator system is K1), best of 3 after a
+   warm-up on the host clock, the device time between two events around
+   a solve, the worst lane's relative residual (below 1e-4), K1
+   launching in both; both in float64 at n = 257 within rel 1e-10; no
+   LONGHORIZON.json is written. Then a one-rank NCCL group (make_mesh):
+   the ts-sharded solve of tests/test_partitioned.py's system (n = 127,
+   m = 6, P = 8, float64) against K1 (rel 1e-10), and
+   tests/test_sharding.py's 257-state point-robot planner (B = 8,
+   float64, LM) with ts_mesh on a (dp = 1, ts = 1) mesh and ts_parts 8
+   against plan_batch without one (rel 1e-8, equal iterations; K1 must
+   launch). Then examples_torch/batch_fleet.py at its B = 256: its
+   plan_fleet in this process on the mesh's dp dim, whose fleet_stats
+   must equal the host sums of plan_batch's result on the same problems
+   (n, converged and gave_up exactly, the mean error rel 1e-6; K1, K2 and
+   K3 must launch), and the script itself, one spawned NCCL rank per
+   card, which must end on its result line. The process group is
+   destroyed at the end.
+
+Kernel times (K1, K2 and K3 at the main path's shapes, and at the
+fleet's and the WAM graph's) are device times (device_ms: median,
+min and max over 20 launches, each between two CUDA events behind a spin
+kernel that keeps the card busy while the host enqueues them; K3 with
+the L2 flushed before each launch, as the main path finds it after K2,
+and also warm); the CUDA-event mean over back-to-back calls beside them
+is labelled the call rate: at small shapes it is the host's launch rate,
+not the kernel's. A phase-14 solve of many kernels gets the same pair
+around it, which spans the card's idle gaps where the host is slower
+(tools/profile_torch_main.py --config longhorizon sums its kernels).
 
 It prints one informational JSON line of main-path metrics, one per suite
 config, one for the Dogleg phase, one per mobile-manipulator row, one for
@@ -118,10 +149,13 @@ the WAM replanning fleet (session-updates/s and the launches of its timed
 rounds), one for the WAM factor graph (`wam7_factor_graph`: the float32
 optimize's time, attempts and launches beside plan_batch's at B = 1), one
 per example of phase 13 (its card and CPU wall times, iterations, final
-errors and launches), a line of K1's and K2's recorded times before their
-current designs (not measured in the run), the kernels' JSON line (K1's
-entry with its m = 36 and m = 12 times and the Pose3 chain's launches,
-K3's time the median), and last `{"ok": true, "device": {...}}`.
+errors and launches), one per long-horizon (n, solver) and one for the
+one-card ts planner and two for batch_fleet (phase 14), a line of K1's
+and K2's recorded times before their current designs (not measured in
+the run), the kernels' JSON line (`ms` the device time and
+`call_rate_ms` beside it; K1's entry with its m = 36 and m = 12 times and
+the Pose3 chain's launches, every entry with its phase-14 launches), and
+last `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
 """
@@ -179,6 +213,44 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# bytes written before each timed launch where the caller finds the 50 MB L2
+# cold: the main path's K3 runs after K2 wrote 278 MB of Jacobians
+FLUSH_BYTES = 256 << 20
+# cycles of torch.cuda._sleep's spin before each timed call (~0.2 ms at the
+# H100's 1980 MHz): longer than the host takes to enqueue a kernel's launch
+SPIN_CYCLES = 400_000
+
+
+def device_ms(fn, reps=20, flush=False):
+    """The device time of a call of fn, not the host's call rate: (median,
+    min, max) ms over `reps` calls, each between two CUDA events. A spin
+    kernel keeps the card busy while the host enqueues the events and the
+    launches, so for a call of one kernel the host's time falls outside
+    the pair; for a call of many kernels that the host enqueues more
+    slowly than the card runs them, the pair spans the card's idle gaps
+    too. With `flush`, a FLUSH_BYTES write before each call evicts the
+    L2."""
+    import torch
+
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda") if flush else None
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        if buf is not None:
+            buf.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in pairs)
+    return ms[len(ms) // 2], ms[0], ms[-1]
 
 
 def bound(nbytes, flops, flops_per_s=F32_FLOPS):
@@ -277,9 +349,11 @@ def check_btsolve(dev):
     B, n, m = B_MAIN, 11, 14
     D, U, b, lam = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                     for a in random_system(B, n, m, seed=1))
-    ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 50)
+    call_ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 50)
+    dev_ms = device_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam))
     D1, U1, b1, lam1 = (t[:1].contiguous() for t in (D, U, b, lam))
-    ms_b1 = cuda_ms(lambda: block_tridiag_solve_cuda(D1, U1, b1, True, lam1), 50)
+    call_ms_b1 = cuda_ms(lambda: block_tridiag_solve_cuda(D1, U1, b1, True, lam1), 50)
+    dev_ms_b1 = device_ms(lambda: block_tridiag_solve_cuda(D1, U1, b1, True, lam1))
     # MobileBaseSE2's shape with lambda = 0, as Dogleg's Gauss-Newton point
     Dm, Um, bm, lm = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                       for a in random_system(4096, 16, 6, seed=2, damped=False))
@@ -298,13 +372,21 @@ def check_btsolve(dev):
     x_lib = torch.linalg.solve(H, rhs).reshape(B, n, m)
     lib_err = float((x_lib - block_tridiag_solve_cuda(D, U, b, True, lam)).abs().max())
     bound_ms, bound_by = k1_bound(B, n, m)
-    log(f"K1 time at B={B} n={n} m={m} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"K1 time at B={B} n={n} m={m} f32: kernel device time {_spread(dev_ms)}, call rate "
+        f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.linalg.solve dense {library_ms:.4f} ms (max|dx| vs K1 {lib_err:.2e}), "
-        f"bound {bound_ms:.4f} ms ({bound_by}); kernel at B=1 {ms_b1:.4f} ms; at "
-        f"B=4096 n=16 m=6 lambda=0 {ms_m6:.4f} ms (bound {m6_bound:.4f} ms, {m6_by})")
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+        f"bound {bound_ms:.4f} ms ({bound_by}); kernel at B=1 device time {_spread(dev_ms_b1)}, "
+        f"call rate {call_ms_b1:.4f} ms; at B=4096 n=16 m=6 lambda=0 call rate {ms_m6:.4f} ms "
+        f"(bound {m6_bound:.4f} ms, {m6_by})")
+    return {"max_abs_err": main_err, "ms": dev_ms[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "ms_b1": ms_b1, "ms_m6_b4096": ms_m6}
+            "call_rate_ms": call_ms, "ms_b1": dev_ms_b1[0], "call_rate_ms_b1": call_ms_b1,
+            "call_rate_ms_m6_b4096": ms_m6}
+
+
+def _spread(t):
+    """A (median, min, max) device time as text."""
+    return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
 def check_btsolve_indefinite_lane(dev):
@@ -374,14 +456,16 @@ def check_fk_arm(dev):
     ops = structure_arrays(model, torch.float32, dev)
     q = torch.as_tensor(np.random.default_rng(2).uniform(-2, 2, (n_main, 7)),
                         dtype=torch.float32, device=dev)
-    ms = cuda_ms(lambda: arm_fk_spheres_cuda(*ops, q), 20)
+    call_ms = cuda_ms(lambda: arm_fk_spheres_cuda(*ops, q), 20)
+    dev_ms = device_ms(lambda: arm_fk_spheres_cuda(*ops, q))
     plain_ms = cuda_ms(lambda: fk_spheres_torch(*ops, q), 10)
     S, d = 16, 7
     bound_ms, bound_by = k2_bound(n_main, d, S)
-    log(f"K2 time at N={n_main} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    log(f"K2 time at N={n_main} f32: kernel device time {_spread(dev_ms)}, call rate "
+        f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": main_err, "ms": dev_ms[0], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "call_rate_ms": call_ms}
 
 
 def check_fk_arm_tiles(dev, n_main):
@@ -582,24 +666,31 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
         log(f"K3 {name} edges: faces, outside and NaN agree (f32, f64, packed, raw)")
 
     table, origin, cell, grid = _lookup_operands(wam_packed, True)
-    # the median of K3_REPEATS timings, with the clocks around them
+    lookup = lambda: sdf_lookup_cuda(wam_pts, table, origin, cell, grid)  # noqa: E731
+    # the call rate's median of K3_REPEATS timings, then the kernel's device
+    # time over 20 launches with the L2 flushed before each (as the main
+    # path finds it) and without, with the clocks around them
     clocks = [gpu_clocks()]
-    runs = sorted(cuda_ms(lambda: sdf_lookup_cuda(wam_pts, table, origin, cell, grid), 20)
-                  for _ in range(K3_REPEATS))
+    runs = sorted(cuda_ms(lookup, 20) for _ in range(K3_REPEATS))
+    cold = device_ms(lookup, flush=True)
+    warm = device_ms(lookup)
     clocks.append(gpu_clocks())
-    ms = runs[len(runs) // 2]
+    call_ms = runs[len(runs) // 2]
     plain_ms = cuda_ms(lambda: sdf_lookup_torch(wam_pts, table, origin, cell, grid), 5)
     bound_ms, bound_by, touched = k3_bound(wam_pts, wam_packed)
     N = wam_pts.shape[0]
-    log(f"K3 time at N={N} f32 packed (WAM main path), {K3_REPEATS} repeats of 20 launches: "
-        f"min {runs[0]:.4f}, median {ms:.4f}, max {runs[-1]:.4f} ms; clocks.sm, clocks.mem "
-        f"before: {clocks[0]}, after: {clocks[1]}")
-    log(f"K3 at N={N}: kernel (median) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}; {touched} distinct rows)")
+    log(f"K3 call rate at N={N} f32 packed (WAM main path), {K3_REPEATS} repeats of 20 "
+        f"launches: min {runs[0]:.4f}, median {call_ms:.4f}, max {runs[-1]:.4f} ms; "
+        f"clocks.sm, clocks.mem before: {clocks[0]}, after: {clocks[1]}")
+    log(f"K3 at N={N}: kernel device time, L2 flushed {_spread(cold)} "
+        f"({100 * bound_ms / cold[0]:.1f}% of the bound), L2 warm {_spread(warm)} "
+        f"({100 * bound_ms / warm[0]:.1f}%); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {touched} distinct rows)")
     grid_sample_ms = _grid_sample_ms(wam_sdf, wam_pts)
     log(f"K3 yardstick: F.grid_sample (distance only, no gradient) {grid_sample_ms:.4f} ms")
-    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return {"max_abs_err": main_err, "ms": cold[0], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "ms_l2_warm": warm[0], "call_rate_ms": call_ms}
 
 
 def _grid_sample_ms(sdf, pts):
@@ -1530,6 +1621,7 @@ def check_fleet_kernels(dev, fleet):
             raise AssertionError(f"K1 WAM fleet lambda {lam_value}: max|dx| {err} > 1e-4 * "
                                  f"{scale}")
     k1_ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 50)
+    k1_dev = device_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam))
     q = _collision_confs(probs, *traj).reshape(-1, 7).contiguous()
     ops = structure_arrays(probs.robot, torch.float32, dev)
     c, J = arm_fk_spheres_cuda(*ops, q)
@@ -1540,11 +1632,16 @@ def check_fleet_kernels(dev, fleet):
     if not err <= 1e-5:
         raise AssertionError(f"K2 WAM fleet: max|d| {err} > 1e-5")
     k2_ms = cuda_ms(lambda: arm_fk_spheres_cuda(*ops, q), 20)
+    k2_dev = device_ms(lambda: arm_fk_spheres_cuda(*ops, q))
     pts = c.reshape(-1, 3).contiguous()
     check_lookup("WAM fleet packed f32", probs.sdf, pts, True)
-    k3_ms = cuda_ms(lambda: sdf_lookup_cuda(pts, *_lookup_operands(probs.sdf, True)), 20)
-    log(f"kernel times at the WAM fleet's shapes: K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms "
+    table = _lookup_operands(probs.sdf, True)
+    k3_ms = cuda_ms(lambda: sdf_lookup_cuda(pts, *table), 20)
+    k3_dev = device_ms(lambda: sdf_lookup_cuda(pts, *table), flush=True)
+    log(f"kernel call rates at the WAM fleet's shapes: K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms "
         f"(N={q.shape[0]}), K3 {k3_ms:.4f} ms (N={pts.shape[0]})")
+    log(f"kernel device times at the WAM fleet's shapes: K1 {_spread(k1_dev)}, K2 "
+        f"{_spread(k2_dev)}, K3 (L2 flushed) {_spread(k3_dev)}")
     b1, b2 = k1_bound(B, b.shape[1], b.shape[2]), k2_bound(q.shape[0], 7, 16)
     b3 = k3_bound(pts, probs.sdf)
     log(f"bounds at the WAM fleet's shapes: K1 {b1[0]:.6f} ms ({b1[1]}), K2 {b2[0]:.6f} ms "
@@ -1720,7 +1817,6 @@ def check_graph_kernels(dev, robot, sdf):
     dense = interpolate_traj(robot.space, line, np.eye(7), 0.2, 9).pose[:-1].reshape(10, 10, 7)
     S, d = 16, 7
     sdf64 = dataclasses.replace(sdf, packed=None).to(dtype=f64)
-    times = {}
     for name, q in (("support", line.pose[1:]), ("interpolated", dense[:, 1:].reshape(-1, 7))):
         q = q.contiguous()
         N = q.shape[0]
@@ -1741,21 +1837,23 @@ def check_graph_kernels(dev, robot, sdf):
         table = _lookup_operands(sdf, True)
         k2_ms = cuda_ms(lambda: arm_fk_spheres_cuda(*ops, q32), 50)
         k3_ms = cuda_ms(lambda: sdf_lookup_cuda(p32, *table), 50)
+        k2_dev = device_ms(lambda: arm_fk_spheres_cuda(*ops, q32))
+        k3_dev = device_ms(lambda: sdf_lookup_cuda(p32, *table), flush=True)
         b2, b3 = k2_bound(N, d, S), k3_bound(p32, sdf)
-        times[name] = (k2_ms, k3_ms)
-        log(f"WAM graph {name}: K2 at N={N} {k2_ms:.4f} ms (bound {b2[0]:.6f} ms, {b2[1]}), "
-            f"K3 at {p32.shape[0]} queries {k3_ms:.4f} ms (bound {b3[0]:.6f} ms, {b3[1]}; "
-            f"{b3[2]} distinct rows)")
+        log(f"WAM graph {name}: K2 at N={N} device time {_spread(k2_dev)}, call rate "
+            f"{k2_ms:.4f} ms (bound {b2[0]:.6f} ms, {b2[1]}), K3 at {p32.shape[0]} queries "
+            f"device time (L2 flushed) {_spread(k3_dev)}, call rate {k3_ms:.4f} ms (bound "
+            f"{b3[0]:.6f} ms, {b3[1]}; {b3[2]} distinct rows)")
     del sdf64
     # K1 on the graph's own normal equations at the example's start
     g = wam_graph(robot, sdf, start, goal)
     D, U, b, _ = (t[None].contiguous() for t in g.linearize(line))
     lam = torch.full((1,), 100.0, device=dev)
-    k1_ms = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 100)
+    k1_call = cuda_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam), 100)
+    k1_dev = device_ms(lambda: block_tridiag_solve_cuda(D, U, b, True, lam))
     b1 = k1_bound(1, 11, 14)
-    log(f"WAM graph: K1 at B=1 n=11 m=14 {k1_ms:.4f} ms (bound {b1[0]:.6f} ms, {b1[1]})")
-    return {"k1_ms": k1_ms, "k2_ms": {k: v[0] for k, v in times.items()},
-            "k3_ms": {k: v[1] for k, v in times.items()}}
+    log(f"WAM graph: K1 at B=1 n=11 m=14 device time {_spread(k1_dev)}, call rate "
+        f"{k1_call:.4f} ms (bound {b1[0]:.6f} ms, {b1[1]})")
 
 
 def graph_vs_planner(dev, inputs):
@@ -2188,6 +2286,346 @@ def se3_examples_phase(dev):
     return k1_12
 
 
+# ---- phase 14: long horizon, the mesh and the sharded solves, batch_fleet ------
+
+# bench_longhorizon.py's protocol: B random SPD systems of m = 14 blocks
+LH_B, LH_M, LH_NS = 256, 14, (65, 129, 257, 1025)
+# the long-horizon planner of tests/test_sharding.py: 257 states, 8 parts
+TS_STEPS, TS_BATCH, TS_PARTS = 256, 8, 8
+FLEET_EXAMPLE_BATCH = 256  # examples_torch/batch_fleet.py's FLEET_BATCH default
+FLEET_EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch",
+                             "batch_fleet.py")
+
+
+def lh_system(rng, n, dev):
+    """bench_longhorizon.py's make_system: D_i = A A^T / m + (m + 2) I,
+    U_i = 0.3 N(0, 1), b = N(0, 1), float32, drawn from `rng` in its order."""
+    import torch
+
+    B, m = LH_B, LH_M
+    A = rng.normal(size=(B, n, m, m)).astype(np.float32)
+    D = A @ np.swapaxes(A, -1, -2) / m + (m + 2) * np.eye(m, dtype=np.float32)
+    U = 0.3 * rng.normal(size=(B, n - 1, m, m)).astype(np.float32)
+    b = rng.normal(size=(B, n, m)).astype(np.float32)
+    return [torch.as_tensor(x, device=dev) for x in (D, U, b)]
+
+
+def lh_residual(D, U, b, x):
+    """The worst lane's |H x - b| / |b|, in float64."""
+    from gpmp2_tpu_torch.solver.optimize import _apply_H
+
+    D, U, b, x = (t.double() for t in (D, U, b, x))
+    r = (_apply_H(D, U, x) - b).flatten(1).norm(dim=1)
+    return float((r / b.flatten(1).norm(dim=1)).max())
+
+
+def best_of_3(fn):
+    """fn's result and its best host time of 3 after a warm-up, in ms, each
+    ended by a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return out, best * 1e3
+
+
+def _check_k1(name, D, U, b, jacobi, lam, tol):
+    """K1 on (D, U, b, lam) against its plain version in float64 on the
+    same rounded inputs: max|dx| within tol * max|x|."""
+    import torch
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda, block_tridiag_solve_torch
+
+    x = block_tridiag_solve_cuda(D, U, b, jacobi, lam)
+    torch.cuda.synchronize()
+    x_ref = block_tridiag_solve_torch(D.double(), U.double(), b.double(), jacobi,
+                                      None if lam is None else lam.double())
+    err, scale = float((x.double() - x_ref).abs().max()), float(x_ref.abs().max())
+    B, n, m = b.shape
+    log(f"K1 {name}: B={B} n={n} m={m} {b.dtype} max|dx|={err:.3e} max|x|={scale:.3e}")
+    if not err <= tol * scale:
+        raise AssertionError(f"K1 {name}: max|dx| {err} > {tol} * {scale}")
+
+
+def separator_system(D, U, b, n_parts):
+    """The (P-1)-block separator system that block_tridiag_solve_partitioned
+    (and the ts-sharded solve on one rank) hands K1 for (D, U, b): Jacobi
+    scaling, the partition, the segment stage, the Schur reduction."""
+    from gpmp2_tpu_torch.solver.partitioned import (_jacobi_scale, _partition, _schur_reduce,
+                                                    _segment_stage)
+
+    D, U, b, _ = _jacobi_scale(D, U, b)
+    D_seg, U_seg, b_seg, a, c, D_sep, b_sep, *_ = _partition(D, U, b, n_parts)
+    return _schur_reduce(_segment_stage(D_seg, U_seg, b_seg), a, c, D_sep, b_sep)
+
+
+def check_phase14_kernels(dev, fleet):
+    """K1, K2 and K3 against their plain versions at the shapes phase 14's
+    paths give them, before any of its timings (phase 3's and phase 11's
+    tolerances: K1 float32 within 1e-4 of max|x| of the plain version in
+    float64 on the rounded inputs, float64 within 1e-10; K2 1e-5;
+    check_lookup):
+      - K1 on the long-horizon systems at n = 1025 (B = 256, m = 14) in
+        float32 and float64, and on the separator system the partitioned
+        solve builds from them (P = 16);
+      - K1 on the separator system of the ts planner's first damped solve
+        (lambda 100, TS_PARTS parts, float64);
+      - K1 on batch_fleet's normal equations at its straight-line start
+        (lambda 100), K2 on its collision configurations, K3 on their
+        sphere centres in its 48^3 ball field;
+      - K3 on the ts planner's centres in its 96^2 planar float64 field."""
+    import torch
+    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda, fk_spheres_torch, structure_arrays
+    from gpmp2_tpu_torch.planner import traj_linearize
+    from gpmp2_tpu_torch.planner.problem import _collision_confs, _spheres_and_jac
+    from gpmp2_tpu_torch.solver.optimize import _damped
+
+    n = LH_NS[-1]
+    D, U, b = lh_system(np.random.default_rng(2), n, dev)
+    _check_k1(f"long horizon n={n}", D, U, b, True, None, 1e-4)
+    _check_k1(f"long horizon n={n}", D.double(), U.double(), b.double(), True, None, 1e-10)
+    P = max(2, min(64, n // 64))
+    _check_k1(f"long horizon n={n} separator system (P={P})", *separator_system(D, U, b, P),
+              False, None, 1e-4)
+
+    probs, init, params = ts_planner_inputs(dev)
+    D, U, b, _ = traj_linearize(probs, init)
+    lam = torch.full((TS_BATCH,), params.lambda_init, dtype=b.dtype, device=dev)
+    _check_k1(f"ts planner separator system (P={TS_PARTS}, lambda {params.lambda_init})",
+              *separator_system(_damped(D, lam), U, b, TS_PARTS), False, None, 1e-10)
+    confs = _collision_confs(probs, *init)
+    centres, _ = _spheres_and_jac(probs.robot, confs)
+    check_lookup("ts planner 96^2 planar f64", probs.sdf,
+                 centres.reshape(-1, centres.shape[-1]).contiguous(), probs.sdf.packed is not None)
+
+    probs, init, params = fleet["fleet_problems"](FLEET_EXAMPLE_BATCH, dev)
+    D, U, b, _ = traj_linearize(probs, init)
+    lam = torch.full((b.shape[0],), params.lambda_init, dtype=b.dtype, device=dev)
+    _check_k1(f"batch_fleet lambda {params.lambda_init}", D, U, b, True, lam, 1e-4)
+    q = _collision_confs(probs, *init).reshape(-1, 7).contiguous()
+    c, J = arm_fk_spheres_cuda(*structure_arrays(probs.robot, torch.float32, dev), q)
+    c_ref, J_ref = fk_spheres_torch(*structure_arrays(probs.robot, torch.float64, dev),
+                                    q.double())
+    err = max(float((c.double() - c_ref).abs().max()), float((J.double() - J_ref).abs().max()))
+    log(f"K2 batch_fleet: N={q.shape[0]} f32 max|d|={err:.3e}")
+    if not err <= 1e-5:
+        raise AssertionError(f"K2 batch_fleet: max|d| {err} > 1e-5")
+    check_lookup("batch_fleet 48^3 ball f32", probs.sdf, c.reshape(-1, 3).contiguous(),
+                 probs.sdf.packed is not None)
+
+
+def long_horizon(dev, card):
+    """bench_longhorizon.py's protocol on the card: at each n, K1 and the
+    partitioned solve (P = max(2, min(64, n // 64))) on the same systems,
+    best of 3 after a warm-up on the host clock, the device time between
+    two events around a solve (device_ms), the worst lane's relative
+    residual; one JSON line per (n, solver). K1 must launch
+    in both (the partitioned solve's separator system is K1). Then both in
+    float64 at n = 257 must agree within rel 1e-10. Writes no file."""
+    import torch
+    from gpmp2_tpu_torch.ops.btsolve import batched_block_tridiag_solve
+    from gpmp2_tpu_torch.solver.partitioned import block_tridiag_solve_partitioned
+
+    rng = np.random.default_rng(0)
+    k1_launches = {}
+    for n in LH_NS:
+        D, U, b = lh_system(rng, n, dev)
+        P = max(2, min(64, n // 64))
+        solvers = (("K1", lambda: batched_block_tridiag_solve(D, U, b)),
+                   (f"partitioned(P={P})",
+                    lambda: block_tridiag_solve_partitioned(D, U, b, P)))
+        for name, solve in solvers:
+            reset_launches()
+            x, ms = best_of_3(solve)
+            launches = k1_launches[f"n={n} {name}"] = read_launches()["btsolve"]
+            if launches == 0:
+                raise AssertionError(f"long horizon n={n} {name}: K1 was not launched")
+            res = lh_residual(D, U, b, x)
+            if not (bool(torch.isfinite(x).all()) and res < 1e-4):
+                raise AssertionError(f"long horizon n={n} {name}: residual {res}")
+            row = {"metric": "long_horizon", "n": n, "m": LH_M, "B": LH_B, "solver": name,
+                   "ms": ms, "device_ms": device_ms(solve, reps=5)[0],
+                   "rel_residual": res, "k1_launches_per_solve": launches / 4, "card": card}
+            log(json.dumps(row))
+    rng = np.random.default_rng(1)
+    D, U, b = (t.double() for t in lh_system(rng, 257, dev))
+    x_k1 = batched_block_tridiag_solve(D, U, b)
+    x_p = block_tridiag_solve_partitioned(D, U, b, 4)
+    rel = float((x_p - x_k1).abs().max() / x_k1.abs().max())
+    log(f"long horizon f64 n=257: partitioned(P=4) against K1 max|dx|/max|x| {rel:.3e}")
+    if not rel <= 1e-10:
+        raise AssertionError(f"long horizon f64: partitioned and K1 differ by rel {rel}")
+    return k1_launches
+
+
+def ts_planner_inputs(dev):
+    """tests/test_sharding.py's long-horizon planner in float64 on `dev`:
+    the point robot in its 96^2 disc field, TS_STEPS intervals, TS_BATCH
+    problems (numpy seed 3), LM: (problems, straight-line init, parameters)."""
+    import torch
+    from gpmp2_tpu_torch.kinematics import PointRobotFK, make_robot_model
+    from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF
+    from gpmp2_tpu_torch.planner import (TrajOptimizerSetting, init_traj_straight_line,
+                                         make_problem)
+    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
+
+    f64, B = torch.float64, TS_BATCH
+    ys = -1.5 + 3.0 / 95 * np.arange(96)
+    X, Y = np.meshgrid(ys, ys)
+    sdf = PlanarSDF(torch.tensor([-1.5, -1.5], dtype=f64, device=dev),
+                    torch.tensor(3.0 / 95, dtype=f64, device=dev),
+                    torch.as_tensor(np.sqrt(X**2 + (Y - 0.12) ** 2) - 0.3, dtype=f64,
+                                    device=dev))
+    robot = make_robot_model(PointRobotFK(), [(0, 0.05, (0.0, 0.0, 0.0))], dtype=f64,
+                             device=dev)
+    setting = TrajOptimizerSetting(dof=2, total_step=TS_STEPS, total_time=5.0,
+                                   obs_check_inter=0, opt_type="lm", max_iter=30,
+                                   rel_thresh=1e-4, Qc=np.eye(2))
+    rng = np.random.default_rng(3)
+    starts = np.stack([np.full(B, -0.8), rng.uniform(-0.5, 0.5, B)], -1)
+    goals = np.stack([np.full(B, 0.8), rng.uniform(-0.5, 0.5, B)], -1)
+    s, g = (torch.as_tensor(x, dtype=f64, device=dev) for x in (starts, goals))
+    z = torch.zeros_like(s)
+    probs = make_problem(robot, sdf, s, z, g, z, setting)
+    init = init_traj_straight_line(probs.space, s, g, TS_STEPS, 5.0)
+    return probs, init, optimizer_params_from_setting(setting)
+
+
+def sharded_one_card(dev, card):
+    """The sharded paths on a one-rank NCCL group (make_mesh opens it): the
+    ts-sharded solve of tests/test_partitioned.py's system (n = 127, m = 6,
+    P = 8, float64) against K1 unsharded (rel 1e-10), and the long-horizon
+    planner with ts_mesh on a (dp = 1, ts = 1) mesh against plan_batch
+    without one (final errors rel 1e-8, equal iterations and converged
+    flags; K1 must launch: the separator systems). Returns the
+    (dp = 1, ts = 1) mesh."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.ops.btsolve import batched_block_tridiag_solve
+    from gpmp2_tpu_torch.parallel import make_mesh, shard_problems
+    from gpmp2_tpu_torch.planner import plan_batch
+    from gpmp2_tpu_torch.solver import block_tridiag_solve_ts_sharded
+
+    ts_mesh = make_mesh(axis_names=("ts",), device=dev)
+    mesh = make_mesh(shape=(1, 1), axis_names=("dp", "ts"), device=dev)
+    log(f"meshes: {ts_mesh}, {mesh}; backend {torch.distributed.get_backend()}")
+    rng = np.random.default_rng(9)
+    n, m = 127, 6
+    A = rng.normal(size=(n, m, m))
+    D = A @ np.swapaxes(A, -1, -2) + 10 * np.eye(m)
+    U = 0.3 * rng.normal(size=(n - 1, m, m))
+    b = rng.normal(size=(n, m))
+    D, U, b = (torch.as_tensor(x, device=dev) for x in (D, U, b))
+    x = block_tridiag_solve_ts_sharded(ts_mesh, D, U, b, 8)
+    x_k1 = batched_block_tridiag_solve(D[None], U[None], b[None])[0]
+    rel = float((x - x_k1).abs().max() / x_k1.abs().max())
+    log(f"ts-sharded solve n={n} m={m} P=8 f64 (one rank) against K1: rel {rel:.3e}")
+    if not rel <= 1e-10:
+        raise AssertionError(f"ts-sharded solve: rel {rel} against K1")
+
+    probs, init, params = ts_planner_inputs(dev)
+    t0 = time.perf_counter()
+    plain = plan_batch(probs, init, params)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    ts = plan_batch(*shard_problems(mesh, probs, init),
+                    dataclasses.replace(params, ts_mesh=mesh, ts_parts=TS_PARTS))
+    torch.cuda.synchronize()
+    ts_s = time.perf_counter() - t0
+    launches = read_launches()
+    rel = float(((ts.error - plain.error).abs() / plain.error.abs()).max())
+    row = {"metric": "ts_planner_one_card", "states": TS_STEPS + 1, "batch": TS_BATCH,
+           "ts_parts": TS_PARTS, "rel_error": rel,
+           "iterations": [ts.iterations.tolist(), plain.iterations.tolist()],
+           "converged": [int(ts.converged.sum()), int(plain.converged.sum())],
+           "ts_s": ts_s, "plain_s": plain_s, "launches": launches, "card": card}
+    log(json.dumps(row))
+    if not (rel <= 1e-8 and torch.equal(ts.iterations, plain.iterations)
+            and torch.equal(ts.converged, plain.converged)):
+        raise AssertionError("ts planner: the sharded solve and plan_batch disagree")
+    if launches["btsolve"] == 0:
+        raise AssertionError(f"ts planner: K1 was not launched: {launches}")
+    return mesh, launches
+
+
+def batch_fleet_phase(dev, card, mesh, fleet):
+    """examples_torch/batch_fleet.py on the card: its plan_fleet on the 'dp'
+    dim of `mesh` in this process (K1, K2 and K3 must launch), whose
+    fleet_stats must equal the host sums of plan_batch's result on the same
+    problems without a mesh (n, converged and gave_up exactly, the mean
+    error within rel 1e-6); then the script itself, which spawns one NCCL
+    rank per visible card, must end on a result line for the whole fleet."""
+    import torch
+    from gpmp2_tpu_torch.planner import plan_batch
+
+    B = FLEET_EXAMPLE_BATCH
+    reset_launches()
+    _, stats, t_first, t_repeat = fleet["plan_fleet"](mesh, B, dev)
+    launches = read_launches()
+    ref = plan_batch(*fleet["fleet_problems"](B, dev))
+    host = {"n": ref.error.numel(), "converged": int(ref.converged.sum()),
+            "gave_up": int(ref.gave_up.sum()), "mean_error": float(ref.error.double().mean())}
+    rel = abs(stats["mean_error"] - host["mean_error"]) / abs(host["mean_error"])
+    log(json.dumps({"metric": "batch_fleet_one_card", "batch": B, "fleet_stats": stats,
+                    "host_sums": host, "mean_error_rel": rel, "first_s": t_first,
+                    "repeat_ms": t_repeat * 1e3, "launches": launches, "card": card}))
+    if not (stats["n"] == host["n"] and stats["converged"] == host["converged"]
+            and stats["gave_up"] == host["gave_up"] and rel <= 1e-6):
+        raise AssertionError(f"batch_fleet: fleet_stats {stats} against host sums {host}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"batch_fleet: a kernel was not launched: {launches}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, FLEET_EXAMPLE], capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        log(out.stdout[-3000:], out.stderr[-3000:])
+        raise AssertionError(f"examples_torch/batch_fleet.py exited {out.returncode}")
+    last = out.stdout.strip().splitlines()[-1]
+    if not last.startswith("result "):
+        raise AssertionError(f"batch_fleet.py: no result line, last line {last!r}")
+    result = json.loads(last[len("result "):])
+    log(json.dumps({"example": "batch_fleet", "wall_s": wall, **result}))
+    if not (result["n"] == B and np.isfinite(result["error"])
+            and result["ranks"] == torch.cuda.device_count()):
+        raise AssertionError(f"batch_fleet.py: result {result}")
+    return launches
+
+
+def parallel_phase(dev, card):
+    """Phase 14: the long-horizon protocol, the sharded paths on one card,
+    batch_fleet; the process group is destroyed at the end. Returns each
+    path's launches."""
+    import runpy
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    fleet = runpy.run_path(FLEET_EXAMPLE, run_name="batch_fleet")
+    check_phase14_kernels(dev, fleet)
+    log(f"phase 14's kernel checks took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = {"long_horizon": long_horizon(dev, card)}
+    log(f"long horizon took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh, launches["ts_planner"] = sharded_one_card(dev, card)
+    log(f"the sharded paths took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["batch_fleet"] = batch_fleet_phase(dev, card, mesh, fleet)
+    log(f"batch_fleet took {time.perf_counter() - t0:.1f} s")
+    dist.destroy_process_group()
+    return launches
+
+
 def main():
     import torch
 
@@ -2255,6 +2693,16 @@ def main():
     # 13. SE(3) states and the remaining examples
     k1.update(se3_examples_phase(dev))
     log(f"SE(3) and the examples done at {time.perf_counter() - t_start:.1f} s")
+
+    # 14. long horizon, the mesh and the sharded solves, batch_fleet
+    phase14 = parallel_phase(dev, card)
+    k1["launches_phase14"] = {"long_horizon": phase14["long_horizon"],
+                              "ts_planner": phase14["ts_planner"]["btsolve"],
+                              "batch_fleet": phase14["batch_fleet"]["btsolve"]}
+    k2["launches_phase14"] = {"batch_fleet": phase14["batch_fleet"]["fk_arm"]}
+    k3["launches_phase14"] = {"ts_planner": phase14["ts_planner"]["sdf_lookup"],
+                              "batch_fleet": phase14["batch_fleet"]["sdf_lookup"]}
+    log(f"long horizon and the mesh done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "btsolve", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/btsolve.cu",

@@ -24,11 +24,14 @@ support-state chain, the multi-chain planner graphs of
 vehicle-dynamics residuals, SE(3) trajectory states (`SE3Space`, the
 Pose3 GP prior and interpolator), the arms' link velocities
 (`arm_link_velocities`), file IO, timing, buffer interop and the
-matplotlib helpers (`utils`, `utils.plot`).
+matplotlib helpers (`utils`, `utils.plot`), the Schur-partitioned and
+trajectory-sharded long-horizon solves (`solver/partitioned.py`) and the
+device mesh on torch.distributed (`parallel`: `make_mesh`,
+`shard_problems`, `fleet_stats`).
 """
 
-from . import (datasets, dynamics, geometry, gp, kinematics, obstacle, planner,  # noqa: F401
-               robots, solver, utils)
+from . import (datasets, dynamics, geometry, gp, kinematics, obstacle, parallel,  # noqa: F401
+               planner, robots, solver, utils)
 from .datasets import (generate_2d_dataset, generate_3d_dataset,
                        planar_sdf_from_occupancy, sdf_from_occupancy)
 from .geometry import Pose3, SE2Space, SE2VectorSpace, SE3Space, StateSpace, VectorSpace

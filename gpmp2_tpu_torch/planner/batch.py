@@ -279,7 +279,10 @@ def _rescue_gave_up_f64(problems: TrajProblem, init_traj: Trajectory,
     sub_probs = dataclasses.replace(
         sub_probs, sdf=dataclasses.replace(sub_probs.sdf, packed=None)).to(f64)
     sub_init = Trajectory(init_traj.pose[idx].to(f64), init_traj.vel[idx].to(f64))
-    sub = plan_batch(sub_probs, sub_init, dataclasses.replace(params, rescue_f64=False))
+    # solved on this rank alone: the lanes that gave up differ between the
+    # mesh's dp ranks, so a sharded solve here could not match collectives
+    sub = plan_batch(sub_probs, sub_init, dataclasses.replace(
+        params, rescue_f64=False, ts_mesh=None, ts_parts=0))
 
     def scatter(full, part):
         full = full.clone()

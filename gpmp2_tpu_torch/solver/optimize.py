@@ -24,7 +24,11 @@ Each attempt solves at the carried linearization, linearizes the
 candidate once (which yields its error), and accepts or rejects per lane.
 The loop is a plain Python loop over max_iter + reject_budget attempts
 that stops as soon as no lane is active; steps on inactive lanes are
-no-ops, so the result does not depend on when it stops. The JAX
+no-ops, so the result does not depend on when it stops; under a mesh
+(`OptimizerParams.ts_mesh`) it stops when no lane of any rank is active,
+and the damped solve is the ts-sharded Schur solve; GPMP2_TPU_PARTITIONED=1
+opts chains of 256 states or more into the one-process Schur solve
+(`_select_solve`). The JAX
 package's chunked, compacted and tail schedules and its flat/lane layouts
 worked around the TPU's dispatch and tiling and have no counterpart here,
 so Dogleg runs on the one layout the port has.
@@ -33,6 +37,8 @@ so Dogleg runs on the one layout the port has.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import Callable, NamedTuple
 
 import torch
@@ -65,6 +71,15 @@ class OptimizerParams:
     # plan_batch re-solves the lanes that gave up in float64
     # (planner/batch.py:_rescue_gave_up_f64)
     rescue_f64: bool = False
+    # trajectory-axis (sequence-parallel) solve: with `ts_mesh` a DeviceMesh
+    # (parallel/mesh.py::make_mesh) with a 'ts' dim and ts_parts > 1, the
+    # damped solve is the Schur-partitioned solve with ts_parts segments
+    # sharded over 'ts' (solver/partitioned.py); the batch is this rank's
+    # 'dp' lanes. With any ts_mesh the stop test is one all_reduce over the
+    # whole mesh, so that every rank makes the same attempts
+    # (gpmp2_tpu/solver/optimize.py:113-123, :271-281)
+    ts_mesh: object = None
+    ts_parts: int = 0
 
 
 class OptResult(NamedTuple):
@@ -102,13 +117,14 @@ def model_decrease(H_diag, H_off, b, delta):
     return _dot(b, delta) - 0.5 * _dot(delta, _apply_H(H_diag, H_off, delta))
 
 
-def dogleg_delta(H_diag, H_off, b, radius):
+def dogleg_delta(H_diag, H_off, b, radius, solve=batched_block_tridiag_solve):
     """Classic dogleg step for trust radii (B,): the Gauss-Newton point
-    (K1 with lambda = 0) when it lies inside the radius, the clipped
-    Cauchy point when that lies outside, else the point on the segment
-    between them at the radius (gpmp2_tpu/solver/optimize.py:298-320)."""
+    (`solve` with lambda = 0: K1, or the ts-sharded solve) when it lies
+    inside the radius, the clipped Cauchy point when that lies outside,
+    else the point on the segment between them at the radius
+    (gpmp2_tpu/solver/optimize.py:298-320)."""
     B = b.shape[0]
-    d_gn = batched_block_tridiag_solve(H_diag, H_off, b, lam=torch.zeros_like(radius))
+    d_gn = solve(H_diag, H_off, b, lam=torch.zeros_like(radius))
     g = b  # the negative gradient
     alpha = _dot(g, g) / torch.clamp(_dot(g, _apply_H(H_diag, H_off, g)), min=1e-30)
     d_sd = alpha[:, None, None] * g
@@ -123,6 +139,44 @@ def dogleg_delta(H_diag, H_off, b, radius):
     d_mix = d_sd + t[:, None, None] * diff
     pick = lambda mask, a, c: torch.where(mask.reshape(B, 1, 1), a, c)  # noqa: E731
     return pick(n_gn <= radius, d_gn, pick(n_sd >= radius, d_sd_clip, d_mix))
+
+
+def _damped(H_diag, lam):
+    """H_diag with lam I (lam (B,)) added to every diagonal block."""
+    eye = torch.eye(H_diag.shape[-1], dtype=H_diag.dtype, device=H_diag.device)
+    return H_diag + lam[:, None, None, None] * eye
+
+
+def _ts_solve(params: OptimizerParams, H_diag, H_off, b, lam):
+    """The damped solve over the mesh's 'ts' dim: lam I added to the
+    diagonal blocks, then the sharded Schur solve (which Jacobi-scales)."""
+    from .partitioned import batched_block_tridiag_solve_ts_sharded
+
+    return batched_block_tridiag_solve_ts_sharded(params.ts_mesh, _damped(H_diag, lam),
+                                                  H_off, b, params.ts_parts)
+
+
+def _partitioned_solve(n_parts: int, H_diag, H_off, b, lam):
+    """The damped solve through the one-process Schur solve: lam I added to
+    the diagonal blocks, then n_parts segments (their separator system is
+    K1)."""
+    from .partitioned import block_tridiag_solve_partitioned
+
+    return block_tridiag_solve_partitioned(_damped(H_diag, lam), H_off, b, n_parts)
+
+
+def _select_solve(params: OptimizerParams, n: int):
+    """optimize_batch's damped solve (H_diag, H_off, b, lam) -> delta for
+    chains of n states: the ts-sharded Schur solve under a ts_mesh; with
+    GPMP2_TPU_PARTITIONED=1 and n >= 256, the one-process Schur solve with
+    P = max(2, min(64, n // 64)) segments (the JAX package's opt-in,
+    gpmp2_tpu/ops/btsolve.py:318-336, which it takes inside
+    batched_block_tridiag_solve); else K1, or its plain version on the CPU."""
+    if params.ts_mesh is not None and params.ts_parts > 1:
+        return functools.partial(_ts_solve, params)
+    if n >= 256 and os.environ.get("GPMP2_TPU_PARTITIONED") == "1":
+        return functools.partial(_partitioned_solve, max(2, min(64, n // 64)))
+    return batched_block_tridiag_solve
 
 
 def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
@@ -150,16 +204,22 @@ def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
     iters = torch.zeros((B,), dtype=torch.int32, device=err.device)
     prev_traj, prev_err = traj, err
 
+    solve = _select_solve(params, lin[2].shape[1])
+    if params.ts_mesh is not None:
+        from ..parallel.mesh import any_over_mesh
     total = params.max_iter + (0 if method == "gaussnewton" else params.reject_budget)
     for _ in range(total):
         active = ~converged & ~gave_up & (iters < params.max_iter)
-        if not bool(active.any()):
+        if params.ts_mesh is None:
+            if not bool(active.any()):
+                break
+        elif not any_over_mesh(params.ts_mesh, active.any()):
             break
         H_diag, H_off, b, _ = lin
         if method == "dogleg":
-            delta = dogleg_delta(H_diag, H_off, b, tr)
+            delta = dogleg_delta(H_diag, H_off, b, tr, solve)
         else:  # LM damps by lambda; GN's tr stays 0
-            delta = batched_block_tridiag_solve(H_diag, H_off, b, lam=tr)
+            delta = solve(H_diag, H_off, b, lam=tr)
         ok = torch.isfinite(delta).reshape(B, -1).all(dim=-1)
         delta = _select(ok, delta, torch.zeros_like(delta))
         cand = retract_fn(traj, delta)

@@ -1,6 +1,7 @@
 """Each script of examples_torch/ runs to its end on the CPU (`--cpu`) in a
 subprocess and exits 0; arm2_factor_graph.py and arm3_factor_graph.py also
-with --dogleg, point_robot_2d.py also with --plot to a temporary file.
+with --dogleg, point_robot_2d.py also with --plot to a temporary file,
+batch_fleet.py on two gloo ranks at 32 problems.
 
 The scripts run one thread each, at most four at a time, from when the
 first case asks for them; each case waits for its own. Every script
@@ -45,7 +46,11 @@ RUNS = {
     "point_robot_2d": ["point_robot_2d.py"],
     "point_robot_2d_plot": ["point_robot_2d.py", "--plot", PLOT],
     "receding_horizon": ["receding_horizon.py"],
+    "batch_fleet": ["batch_fleet.py"],
 }
+# environment of a script's run beyond the threads: batch_fleet's two gloo
+# ranks plan 32 problems (its default is 256)
+ENV = {"batch_fleet": {"FLEET_BATCH": "32"}}
 # what each of the older scripts prints as its result
 OLDER = {"wam_factor_graph": "Final Error", "arm2_factor_graph": "Final Error",
          "arm2_factor_graph_dogleg": "Final Error", "arm3_goal_reach": "Final Error",
@@ -54,8 +59,8 @@ OLDER = {"wam_factor_graph": "Final Error", "arm2_factor_graph": "Final Error",
 MAX_RUNNING = 4
 
 
-def _run(argv):
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+def _run(name, argv):
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", **ENV.get(name, {}))
     return subprocess.run(
         [sys.executable, os.path.join(REPO, "examples_torch", argv[0]), "--cpu", *argv[1:]],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -65,7 +70,7 @@ def _run(argv):
 @pytest.fixture(scope="module")
 def runs():
     pool = concurrent.futures.ThreadPoolExecutor(MAX_RUNNING)
-    futures = {name: pool.submit(_run, argv) for name, argv in RUNS.items()}
+    futures = {name: pool.submit(_run, name, argv) for name, argv in RUNS.items()}
     yield futures
     for f in futures.values():
         f.cancel()

@@ -48,20 +48,17 @@ def test_scripts_leave_jax_out():
 
 
 # The JAX package's public names the port does not have, by subpackage:
-# left for Slice G (the mesh and the partitioned and sharded solves) and
-# Slice H (the screened SDF), or left out on purpose (`infer_batch_axes`:
-# the port's problems carry an explicit batch axis; the unbatched XLA
-# solve). The port's `ops/__init__.py` is empty: its K1 entry
-# `batched_block_tridiag_solve` is exported at the top level.
+# left for Slice H (the screened SDF), or left out on purpose
+# (`infer_batch_axes`: the port's problems carry an explicit batch axis;
+# the unbatched XLA solve). The port's `ops/__init__.py` is empty: its K1
+# entry `batched_block_tridiag_solve` is exported at the top level.
 NOT_PORTED = {
     "datasets": {"dataset_screen_boxes"},
     "obstacle": {"screen_sdf"},
     "ops": {"batched_block_tridiag_solve", "block_tridiag_solve_pallas"},
-    "parallel": {"make_mesh", "shard_problems", "batch_sharding", "replicate", "fleet_stats"},
     "planner": {"infer_batch_axes"},
-    "solver": {"block_tridiag_solve", "block_tridiag_solve_partitioned",
-               "block_tridiag_solve_ts_sharded"},
-    "": {"block_tridiag_solve", "block_tridiag_solve_pallas", "parallel"},
+    "solver": {"block_tridiag_solve"},
+    "": {"block_tridiag_solve", "block_tridiag_solve_pallas"},
 }
 
 

@@ -511,3 +511,53 @@ def test_multigraph_card_matches_cpu(cuda_device):
     for a, b in ((card[1], plain[1]), (card[2], plain[2])):
         assert torch.allclose(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))
     assert card[4] == plain[4] and abs(card[3] - plain[3]) <= 1e-6 * plain[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,P", [(torch.float64, 257, 4), (torch.float32, 1025, 16)])
+def test_partitioned_solve_on_card(cuda_device, dtype, n, P):
+    """The Schur-partitioned solve on the card (its separator system through
+    K1) against K1 alone on the same systems."""
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
+    from gpmp2_tpu_torch.solver import block_tridiag_solve_partitioned
+
+    D, U, b, _ = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+                  for a in random_system(8, n, 14, seed=n, conditioned=True))
+    launches = block_tridiag_solve_cuda.launches
+    x = block_tridiag_solve_partitioned(D, U, b, P)
+    assert block_tridiag_solve_cuda.launches == launches + 1
+    x_ref = block_tridiag_solve_cuda(D, U, b)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((x - x_ref).abs().max()) <= tol * float(x_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_partitioned_odd_block_raises_on_card(cuda_device):
+    """K1 takes even m only; the separator system does not detour to the
+    plain version on a CUDA tensor."""
+    from gpmp2_tpu_torch.solver import block_tridiag_solve_partitioned
+
+    D, U, b, _ = (torch.as_tensor(a, device=cuda_device)
+                  for a in random_system(1, 31, 3, seed=3))
+    with pytest.raises(ValueError, match="must be even"):
+        block_tridiag_solve_partitioned(D[0], U[0], b[0], 4)
+
+
+@pytest.mark.cuda
+def test_ts_sharded_one_rank_nccl(cuda_device):
+    """The ts-sharded solve on a one-rank NCCL group against K1 alone."""
+    import torch.distributed as dist
+
+    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
+    from gpmp2_tpu_torch.parallel import make_mesh
+    from gpmp2_tpu_torch.solver.partitioned import batched_block_tridiag_solve_ts_sharded
+
+    mesh = make_mesh(shape=(1, 1), axis_names=("dp", "ts"), device=cuda_device)
+    try:
+        D, U, b, _ = (torch.as_tensor(a, device=cuda_device)
+                      for a in random_system(4, 127, 6, seed=9, conditioned=True))
+        x = batched_block_tridiag_solve_ts_sharded(mesh, D, U, b, 8)
+        x_ref = block_tridiag_solve_cuda(D, U, b)
+        assert float((x - x_ref).abs().max()) <= 1e-10 * float(x_ref.abs().max())
+    finally:
+        dist.destroy_process_group()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_main.py [--out DIR] [--config main|mobile|pr2|replan]
+    python3 tools/profile_torch_main.py [--out DIR]
+        [--config main|mobile|pr2|replan|longhorizon]
 
 Builds chip_smoke.py's main-path inputs (`main_path_inputs`: WAM 7-DOF, the
 300^3 WAMDeskDataset SDF in float32, numpy seed 0 endpoints, LM with
@@ -49,6 +50,19 @@ round's `update` and the device time under it; the rest of the round is
 the slot and goal writes), linearize_ms (CUDA events, one
 `traj_linearize` of the fleet at its estimate) and K1's launches. The
 table goes to DIR/profile_replan_b1024.txt.
+
+`--config longhorizon` profiles chip_smoke.py's phase-14 solves
+(`bench_longhorizon.py`'s systems: B = 256, m = 14, float32, numpy seed
+0, n = 65, 129, 257, 1025): for K1 and the partitioned solve at each n,
+one JSON line with busy_ms and k1_ms, the summed device time of all
+kernels and of K1's per solve over 5 solves, kernels_per_solve, and
+top, the five kernels that take the most of it (name, ms per solve).
+All solves run in one profiled window, a marker kernel
+(torch.cuda._sleep) before each solver's and after the last; the profiler
+can hand a window's last records to a later window (seen on the H100),
+so short windows after it collect what arrives late, and each solver's
+records are those between its two markers. Missing markers or K1
+records raise. The lines also go to DIR/profile_longhorizon.txt.
 """
 
 import argparse
@@ -64,7 +78,8 @@ import numpy as np
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join("build", "profile"))
-    ap.add_argument("--config", choices=("main", "mobile", "pr2", "replan"), default="main")
+    ap.add_argument("--config", choices=("main", "mobile", "pr2", "replan", "longhorizon"),
+                    default="main")
     args = ap.parse_args()
 
     import torch
@@ -93,6 +108,8 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     if args.config == "replan":
         return profile_replan(args.out, card, dev)
+    if args.config == "longhorizon":
+        return profile_longhorizon(args.out, card, dev)
     if args.config != "main":
         return profile_mobile(args.out, card, dev, args.config)
     robot, sdf, setting, params, starts, goals = cs.main_path_inputs(dev)
@@ -323,6 +340,72 @@ def profile_replan(out, card, dev):
     with open(os.path.join(out, f"profile_replan_b{cs.B_FLEET}.txt"), "w") as fh:
         fh.write(card + "\n" + table)
     print("\n".join(table.splitlines()[:34]), flush=True)
+    return 0
+
+
+def profile_longhorizon(out, card, dev):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from gpmp2_tpu_torch.ops.btsolve import batched_block_tridiag_solve
+    from gpmp2_tpu_torch.solver.partitioned import block_tridiag_solve_partitioned
+
+    reps, solves = 5, []
+    rng = np.random.default_rng(0)
+    for n in cs.LH_NS:
+        D, U, b = cs.lh_system(rng, n, dev)
+        P = max(2, min(64, n // 64))
+        solves.append((n, "K1", lambda D=D, U=U, b=b: batched_block_tridiag_solve(D, U, b)))
+        solves.append((n, f"partitioned(P={P})", lambda D=D, U=U, b=b, P=P:
+                       block_tridiag_solve_partitioned(D, U, b, P)))
+    for *_, solve in solves:
+        solve()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def records(prof):
+        return [(e.time_range.start, e.name, e.time_range.elapsed_us())
+                for e in prof.events() if e.device_type.name == "CUDA"]
+
+    # one window: a marker kernel before each solver's solves and after the last
+    with profile(activities=acts) as prof:
+        for *_, solve in solves:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                solve()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    pool = records(prof)
+    for _ in range(5):
+        if sum("spin_kernel" in e[1] for e in pool) > len(solves):
+            break
+        with profile(activities=acts) as late:
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+        pool += records(late)
+    ev = sorted(pool)
+    marks = [i for i, e in enumerate(ev) if "spin_kernel" in e[1]]
+    if len(marks) != len(solves) + 1:
+        raise RuntimeError(f"the profiler recorded {len(marks)} of {len(solves) + 1} markers")
+    lines = [card]
+    for (n, name, _), a, z in zip(solves, marks, marks[1:]):
+        recs = [(kernel, us) for _, kernel, us in ev[a + 1:z]]
+        k1 = [us for kernel, us in recs if "bt_kernel" in kernel]
+        if len(k1) != reps:
+            raise RuntimeError(f"{name} n={n}: {len(k1)} K1 records in {reps} solves")
+        by_name = {}
+        for kernel, us in recs:
+            by_name[kernel] = by_name.get(kernel, 0.0) + us
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        lines.append(json.dumps({
+            "config": "longhorizon", "n": n, "B": cs.LH_B, "m": cs.LH_M, "solver": name,
+            "busy_ms": sum(us for _, us in recs) / reps / 1e3, "k1_ms": sum(k1) / reps / 1e3,
+            "kernels_per_solve": len(recs) / reps,
+            "top": [[k[:60], us / reps / 1e3] for k, us in top], "card": card}))
+        print(lines[-1], flush=True)
+    with open(os.path.join(out, "profile_longhorizon.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
     return 0
 
 
