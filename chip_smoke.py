@@ -130,7 +130,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    (n, converged and gave_up exactly, the mean error rel 1e-6; K1, K2 and
    K3 must launch), and the script itself, one spawned NCCL rank per
    card, which must end on its result line. The process group is
-   destroyed at the end.
+   destroyed at the end;
+15. the opt-in SDF variants, K3's new instantiations: float16 and
+   bfloat16 packed rows and the hull screen (WAMDeskDataset's boxes) and
+   coarse screen (factor 8), both with each sphere's eps_total as the
+   threshold, against their plain versions at the main path's queries
+   (check_lookup; the float64 comparison leaves out the queries that the
+   float32 and float64 bounds screen differently), the corner-major
+   planar table at PointRobot2D's queries on OneObstacle, at
+   MultiWorld2D's per-problem worlds and on the edges; each timed
+   (device_ms, L2 flushed) beside its own bound (16-B rows for the
+   narrow ones, no row bytes for a screened query, the boxes or the
+   coarse table read once), with its screened fraction, and the default
+   instantiation timed again, which must lie within 3% of its phase-5
+   time; then the main path (phase 6's inputs) once with
+   GPMP2_TPU_PACK_DTYPE=float16, once with the hull screen and once with
+   the coarse screen, each gated at 0.95 converged and 0.99
+   collision-free with K1-K3 launching, the screened runs equal to the
+   unscreened run lane for lane (final errors within rel 1e-6, the same
+   converged flags; the count of bit-unequal lanes printed); and
+   PointRobot2D and Arm3Limits2D at the suite's throughput batches with
+   the corner-major table, equal to the row-major runs in every lane.
 
 Kernel times (K1, K2 and K3 at the main path's shapes, and at the
 fleet's and the WAM graph's) are device times (device_ms: median,
@@ -150,11 +170,14 @@ rounds), one for the WAM factor graph (`wam7_factor_graph`: the float32
 optimize's time, attempts and launches beside plan_batch's at B = 1), one
 per example of phase 13 (its card and CPU wall times, iterations, final
 errors and launches), one per long-horizon (n, solver) and one for the
-one-card ts planner and two for batch_fleet (phase 14), a line of K1's
-and K2's recorded times before their current designs (not measured in
-the run), the kernels' JSON line (`ms` the device time and
-`call_rate_ms` beside it; K1's entry with its m = 36 and m = 12 times and
-the Pose3 chain's launches, every entry with its phase-14 launches), and
+one-card ts planner and two for batch_fleet (phase 14), one per phase-15
+main-path option and corner-major suite row, a line of K1's and K2's
+recorded times before their current designs (not measured in the run),
+the kernels' JSON line (`ms` the device time and `call_rate_ms` beside
+it; K1's entry with its m = 36 and m = 12 times and the Pose3 chain's
+launches, every entry with its phase-14 launches, K3's with its
+`variants`: each one's `ms`, `bound_ms`, `screened_fraction` and
+main-path launches, and `ms_phase15`, the default's time again), and
 last `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -277,19 +300,28 @@ def k2_bound(N, d, S):
     return bound(4 * N * (d + S * 3 + S * 3 * d), N * (40 * d + S * (12 + 9 * d)))
 
 
-def k3_bound(pts, sdf):
-    """K3's bound for float32 queries pts (N, 3) on a packed 3D field: the
-    points read once, the distinct packed rows they touch read once, the
-    four outputs and the mask written once. Returns (bound_ms, bound_by,
-    distinct rows)."""
+def k3_bound(pts, sdf, read=None, row_bytes=None, once_bytes=0, screen_flops=0):
+    """K3's bound for float32 queries pts (N, dim) on a packed field of one
+    shared world: the points read once, the distinct packed rows of the
+    queries that `read` (default all) touch read once, `row_bytes` each
+    (default 4 bytes a corner), the screen's operands (`once_bytes`) read
+    once, the dim + 1 outputs and the mask written once; the
+    interpolation's operations on the rows read (120 in 3D, 40 in 2D)
+    and `screen_flops` a query. Returns (bound_ms, bound_by, distinct
+    rows)."""
     import torch
 
+    dim = sdf.DIM
     c = _cell_coords(pts.double(), sdf).clamp(min=0)
-    nz, rows, cols = sdf.grid
-    lo = [c[:, k].floor().clamp(max=s - 2).long() for k, s in enumerate((cols, rows, nz))]
-    touched = int(torch.unique((lo[2] * rows + lo[1]) * cols + lo[0]).numel())
+    grid = sdf.grid
+    lo = [c[:, k].floor().clamp(max=s - 2).long() for k, s in enumerate(grid[::-1])]
+    base = lo[1] * grid[-1] + lo[0] + (lo[2] * grid[-1] * grid[-2] if dim == 3 else 0)
+    n_read = pts.shape[0] if read is None else int(read.sum())
+    touched = int(torch.unique(base if read is None else base[read]).numel())
     N = pts.shape[0]
-    return (*bound(N * 3 * 4 + touched * 32 + N * (4 * 4 + 1), N * 120), touched)
+    row_bytes = 4 * 2 ** dim if row_bytes is None else row_bytes
+    return (*bound(N * dim * 4 + touched * row_bytes + once_bytes + N * ((dim + 1) * 4 + 1),
+                   n_read * (120 if dim == 3 else 40) + N * screen_flops), touched)
 
 
 def check_btsolve(dev):
@@ -539,45 +571,85 @@ def _compare_lookup(name, got, ref, near, tol):
 
 def _lookup_operands(sdf, packed):
     """K3's table, origin, cell size and grid of a field: its packed rows
-    or its raw samples."""
-    t = sdf.packed.reshape(-1, 2 ** sdf.DIM) if packed else sdf.data.reshape(-1)
+    (a corner-major table as (W, 4, cells)) or its raw samples."""
+    if not packed:
+        t = sdf.data.reshape(-1)
+    elif sdf.corner_major:
+        t = sdf.packed.reshape(-1, 4, sdf.cells)
+    else:
+        t = sdf.packed.reshape(-1, 2 ** sdf.DIM)
     return t, sdf.origin, sdf.cell_size, sdf.grid
 
 
-def check_lookup(name, sdf, pts, packed, qpw=0):
+def _variant(sdf, packed, thresh=None):
+    """K3's keywords for a field's table layout and, given the thresholds
+    (S,), its screen (the hull screen where the field has boxes)."""
+    kw = {"corner_major": True} if packed and sdf.corner_major else {}
+    if thresh is not None:
+        kw["thresh"] = thresh
+        if sdf.screen_boxes is not None:
+            kw["boxes"] = sdf.screen_boxes
+        else:
+            kw.update(coarse=sdf.coarse, coarse_cell=sdf.coarse_cell)
+    return kw
+
+
+def check_lookup(name, sdf, pts, packed, qpw=0, thresh=None):
     """K3 on `pts` (N, >= dim) against its plain version in float64 on the
     same rounded inputs (relative tolerance 1e-4 in float32: the cell
     coordinate carries a float32 rounding of ~2e-5 cells, which moves the
     gradient weights; 1e-12 in float64), and a float32 kernel also against
     the plain version in float32 on every query (1e-5: the same cells,
-    other rounding). Returns the largest difference."""
+    other rounding). A narrow packed table stays narrow in the float64
+    plain version. With `thresh` (S,) the field's screen is on; queries
+    that the float32 and float64 bounds screen differently, or screen
+    with bounds 1e-4 of the largest apart (a point whose float32 coarse
+    coordinate rounds into the neighbouring coarse block, whose bound
+    jumps), leave the float64 comparison; the float32 one holds every
+    query (the kernel's bound has the plain version's rounding). Returns
+    the largest difference."""
     import dataclasses
 
     import torch
-    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+    from gpmp2_tpu_torch.ops.sdf_lookup import screen_bound, sdf_lookup_cuda, sdf_lookup_torch
 
     tol = 1e-4 if pts.dtype == torch.float32 else 1e-12
-    got = sdf_lookup_cuda(pts, *_lookup_operands(sdf, packed), qpw)
+    kw = _variant(sdf, packed, thresh)
+    got = sdf_lookup_cuda(pts, *_lookup_operands(sdf, packed), qpw, **kw)
     torch.cuda.synchronize()
     s64 = (sdf if packed else dataclasses.replace(sdf, packed=None)).to(dtype=torch.float64)
-    ref = sdf_lookup_torch(pts.double(), *_lookup_operands(s64, packed), qpw)
+    kw64 = _variant(s64, packed, None if thresh is None else thresh.double())
+    ref = sdf_lookup_torch(pts.double(), *_lookup_operands(s64, packed), qpw, **kw64)
     if pts.dtype == torch.float32:
         c = _cell_coords(pts.double(), sdf)
         near = ((c - c.round()).abs() < 1e-4).any(-1)
         # and every query against the plain version in float32, which
         # picks the same cells: only FMA contraction differs
-        same = sdf_lookup_torch(pts, *_lookup_operands(sdf, packed), qpw)
+        same = sdf_lookup_torch(pts, *_lookup_operands(sdf, packed), qpw, **kw)
         _compare_lookup(name + " (plain f32)", got, same, torch.zeros_like(near), 1e-5)
     else:
         near = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+    if thresh is not None:
+        screen = {k: v for k, v in kw.items() if k != "corner_major"}
+        screen64 = {k: v for k, v in kw64.items() if k != "corner_major"}
+        b32, s32 = screen_bound(pts, sdf.origin, sdf.cell_size, **screen)
+        b64, s64m = screen_bound(pts.double(), s64.origin, s64.cell_size, **screen64)
+        held = s64m & b64.isfinite()
+        scale = float(b64[held].abs().max()) if held.any() else 1.0
+        apart = (b32.double() - b64).abs() > 1e-4 * scale
+        same_screen = (s32 == s64m) & ~(s32 & apart)
+        log(f"K3 {name}: {int((s32 != s64m).sum())} queries screened differently and "
+            f"{int((s32 & s64m & apart).sum())} with bounds apart in float32 and float64 "
+            f"leave the float64 comparison")
+        got = [t[same_screen] for t in got]
+        ref = [t[same_screen] for t in ref]
+        near = near[same_screen]
     return _compare_lookup(name, got, ref, near, tol)
 
 
 def check_sdf_lookup(dev, wam_sdf, wam_pts):
     """K3 against its plain version (check_lookup) at the main path's, the
     suite's and the edges' queries; timed at the main path's."""
-    import dataclasses
-
     import torch
     from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
     from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF, pack_planar_sdf, pack_sdf
@@ -628,42 +700,8 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
     check_lookup("MultiWorld packed f32", worlds, ptsw, True, qpw)
     check_lookup("MultiWorld raw f64", worlds.to(dtype=f64), ptsw.double(), False, qpw)
 
-    # edges: the low and top faces, one step outside each, and NaN, on the
-    # two fields moved to a dyadic grid (origin -1, cell 1/128), where the
-    # face points are exact in both dtypes
     for name, field in (("WAM", wam_packed), ("OneObstacle", planar)):
-        sdf = dataclasses.replace(field, origin=torch.full_like(field.origin, -1.0),
-                                  cell_size=torch.full_like(field.cell_size, 1 / 128))
-        o = sdf.origin.double()
-        top = o + (torch.tensor(sdf.grid[::-1], device=dev) - 1).double() * sdf.cell_size.double()
-        mid = 0.5 * (o + top)
-        pts = [o, top, mid]
-        for k in range(sdf.DIM):
-            for face, step in ((top, 1 / 1024), (o, -1 / 1024)):
-                on = mid.clone()
-                on[k] = face[k]
-                out = on.clone()
-                out[k] = out[k] + step
-                pts += [on, out]
-        nan = mid.clone()
-        nan[0] = float("nan")
-        pts = torch.stack(pts + [nan])
-        for dtype in (f32, f64):
-            s = sdf.to(dtype=dtype)
-            p = pts.to(dtype)
-            for packed in (True, False):
-                got = sdf_lookup_cuda(p, *_lookup_operands(s, packed))
-                ref = sdf_lookup_torch(p, *_lookup_operands(s, packed))
-                want_ok = [True] * 3 + [True, False] * (2 * sdf.DIM) + [False]
-                if got[-1].tolist() != want_ok or ref[-1].tolist() != want_ok:
-                    raise AssertionError(f"K3 {name} edges {dtype}: in-range mask "
-                                         f"{got[-1].tolist()}")
-                for g, r in zip(got[:-1], ref[:-1]):
-                    if not torch.allclose(g, r, rtol=1e-5, atol=1e-6, equal_nan=True):
-                        raise AssertionError(f"K3 {name} edges {dtype} packed={packed}")
-                if not bool(torch.isnan(got[0][-1])):
-                    raise AssertionError(f"K3 {name} edges: NaN query gave {got[0][-1]}")
-        log(f"K3 {name} edges: faces, outside and NaN agree (f32, f64, packed, raw)")
+        check_lookup_edges(name, field, dev, (True, False))
 
     table, origin, cell, grid = _lookup_operands(wam_packed, True)
     lookup = lambda: sdf_lookup_cuda(wam_pts, table, origin, cell, grid)  # noqa: E731
@@ -691,6 +729,53 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
     return {"max_abs_err": main_err, "ms": cold[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "ms_l2_warm": warm[0], "call_rate_ms": call_ms}
+
+
+def check_lookup_edges(name, field, dev, packings):
+    """K3 against its plain version on the edges: the low and top faces,
+    one step outside each, and NaN, on the field moved to a dyadic grid
+    (origin -1, cell 1/128), where the face points are exact in both
+    dtypes; each packing of `packings` (True: the field's packed table,
+    False: its raw samples) in float32 and float64."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    sdf = dataclasses.replace(field, origin=torch.full_like(field.origin, -1.0),
+                              cell_size=torch.full_like(field.cell_size, 1 / 128))
+    o = sdf.origin.double()
+    top = o + (torch.tensor(sdf.grid[::-1], device=dev) - 1).double() * sdf.cell_size.double()
+    mid = 0.5 * (o + top)
+    pts = [o, top, mid]
+    for k in range(sdf.DIM):
+        for face, step in ((top, 1 / 1024), (o, -1 / 1024)):
+            on = mid.clone()
+            on[k] = face[k]
+            out = on.clone()
+            out[k] = out[k] + step
+            pts += [on, out]
+    nan = mid.clone()
+    nan[0] = float("nan")
+    pts = torch.stack(pts + [nan])
+    for dtype in (torch.float32, torch.float64):
+        s = sdf.to(dtype=dtype)
+        p = pts.to(dtype)
+        for packed in packings:
+            kw = _variant(s, packed)
+            got = sdf_lookup_cuda(p, *_lookup_operands(s, packed), **kw)
+            ref = sdf_lookup_torch(p, *_lookup_operands(s, packed), **kw)
+            want_ok = [True] * 3 + [True, False] * (2 * sdf.DIM) + [False]
+            if got[-1].tolist() != want_ok or ref[-1].tolist() != want_ok:
+                raise AssertionError(f"K3 {name} edges {dtype}: in-range mask "
+                                     f"{got[-1].tolist()}")
+            for g, r in zip(got[:-1], ref[:-1]):
+                if not torch.allclose(g, r, rtol=1e-5, atol=1e-6, equal_nan=True):
+                    raise AssertionError(f"K3 {name} edges {dtype} packed={packed}")
+            if not bool(torch.isnan(got[0][-1])):
+                raise AssertionError(f"K3 {name} edges: NaN query gave {got[0][-1]}")
+    log(f"K3 {name} edges: faces, outside and NaN agree (f32, f64, "
+        f"{', '.join('packed' if p else 'raw' for p in packings)})")
 
 
 def _grid_sample_ms(sdf, pts):
@@ -811,40 +896,56 @@ def path_solver(inputs, params):
         cc = collision_cost(probs, res.traj.pose)
         torch.cuda.synchronize()
         return res, cc
+    solve.sdf = packed
     return solve
+
+
+def timed_main_path(name, solve):
+    """The main path's protocol: a warm-up, then REPEATS timed solves of
+    B_MAIN problems, each of which must launch K1, K2 and K3. Returns the
+    best time, the last result, its collision costs and its launches."""
+    solve(B_MAIN)  # warm-up
+    best = float("inf")
+    for _ in range(REPEATS):
+        reset_launches()
+        t0 = time.perf_counter()
+        res, cc = solve(B_MAIN)
+        best = min(best, time.perf_counter() - t0)
+        launches = read_launches()
+        if min(launches.values()) == 0:
+            raise AssertionError(f"a kernel was not launched by the {name}: {launches}")
+    return best, res, cc, launches
+
+
+def main_path_quality(name, res, cc):
+    """The converged (and not given up) and collision-free masks and the
+    fractions the main path gates on: converged 0.95, collision-free among
+    the converged 0.99."""
+    conv = (res.converged & ~res.gave_up).cpu().numpy()
+    free = (cc < 1e-4).cpu().numpy()
+    converged_frac = float(conv.mean())
+    collision_free_frac = float(free[conv].mean()) if conv.any() else 0.0
+    if converged_frac < 0.95:
+        raise AssertionError(f"{name}: converged_frac {converged_frac} < 0.95")
+    if collision_free_frac < 0.99:
+        raise AssertionError(f"{name}: collision-free among converged {collision_free_frac} "
+                             f"< 0.99")
+    return conv, free, converged_frac, collision_free_frac
 
 
 def main_path(dev, card, inputs):
     import torch
 
     solve = path_solver(inputs, inputs[3])
-    solve(B_MAIN)  # warm-up
-    times = []
-    for _ in range(REPEATS):
-        reset_launches()
-        t0 = time.perf_counter()
-        res, cc = solve(B_MAIN)
-        times.append(time.perf_counter() - t0)
-        launches = read_launches()
-        if min(launches.values()) == 0:
-            raise AssertionError(f"a kernel was not launched by the main path: {launches}")
-    t_solve = min(times)
-
+    t_solve, res, cc, launches = timed_main_path("main path", solve)
     for name, t in (("pose", res.traj.pose), ("vel", res.traj.vel),
                     ("error", res.error), ("collision cost", cc)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"non-finite {name} in the main-path result")
     if res.traj.pose.shape != (B_MAIN, 11, 7):
         raise AssertionError(f"trajectory shape {tuple(res.traj.pose.shape)}")
-    conv = (res.converged & ~res.gave_up).cpu().numpy()
+    conv, free, converged_frac, collision_free_frac = main_path_quality("main path", res, cc)
     gave = res.gave_up.cpu().numpy()
-    free = (cc < 1e-4).cpu().numpy()
-    converged_frac = float(conv.mean())
-    collision_free_frac = float(free[conv].mean()) if conv.any() else 0.0
-    if converged_frac < 0.95:
-        raise AssertionError(f"converged_frac {converged_frac} < 0.95")
-    if collision_free_frac < 0.99:
-        raise AssertionError(f"collision-free among converged {collision_free_frac} < 0.99")
 
     def warm_latency_ms(b):
         solve(b)
@@ -2626,6 +2727,231 @@ def parallel_phase(dev, card):
     return launches
 
 
+# ---- phase 15: the opt-in SDF variants -------------------------------------------
+
+COARSE_FACTOR = 8  # screen_sdf's default, the JAX package's
+# the main path's options of this phase: (name, GPMP2_TPU_PACK_DTYPE, screen)
+VARIANT_PATHS = (("pack_f16", "float16", None), ("screen_boxes", "", "hull"),
+                 ("screen_sdf", "", "coarse"))
+
+
+def _screens(dev, sdf):
+    """The main path's field with the hull screen (WAMDeskDataset's boxes)
+    and with the coarse screen (factor 8), unpacked."""
+    import dataclasses
+
+    import torch
+    from gpmp2_tpu_torch.datasets import dataset_screen_boxes, generate_3d_dataset
+    from gpmp2_tpu_torch.obstacle.sdf import screen_sdf
+
+    boxes = torch.as_tensor(dataset_screen_boxes(generate_3d_dataset("WAMDeskDataset")),
+                            dtype=sdf.data.dtype, device=dev)
+    raw = dataclasses.replace(sdf, packed=None)
+    return {"hull": dataclasses.replace(raw, screen_boxes=boxes),
+            "coarse": screen_sdf(raw, COARSE_FACTOR)}
+
+
+def check_variant_lookups(dev, wam_sdf, wam_pts, eps_total, default_ms):
+    """K3's new instantiations against their plain versions (check_lookup):
+    float16 and bfloat16 rows and the hull and coarse screens (thresholds
+    eps_total per sphere) at the main path's queries, the corner-major
+    table at PointRobot2D's and MultiWorld2D's queries and on the edges.
+    Each is timed (device_ms, L2 flushed) beside its own bound, and the
+    default instantiation again, which must stay within 3% of its phase-5
+    time. Returns the kernels' line's `variants` and the default's time."""
+    import torch
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF, pack_planar_sdf, pack_sdf
+    from gpmp2_tpu_torch.ops.sdf_lookup import screen_bound, sdf_lookup_cuda
+
+    f32 = torch.float32
+    N = wam_pts.shape[0]
+    S = eps_total.shape[0]
+    thresh = eps_total.contiguous()
+    variants = {}
+
+    def timed(name, sdf, pts, kw, bound_args, qpw=0, screened=None):
+        ms = device_ms(lambda: sdf_lookup_cuda(pts, *_lookup_operands(sdf, True), qpw,
+                                               **kw), flush=True)
+        b = bound_args()
+        frac = 0.0 if screened is None else float(screened.float().mean())
+        variants[name] = {"ms": ms[0], "bound_ms": b[0], "bound_by": b[1],
+                          "screened_fraction": frac}
+        log(f"K3 {name} at N={pts.shape[0]}: device time, L2 flushed, {_spread(ms)}; bound "
+            f"{b[0]:.6f} ms ({b[1]}; {b[2]} distinct rows), {100 * b[0] / ms[0]:.1f}% of it"
+            f"; screened fraction {frac:.4f}")
+
+    for name, dtype in (("f16", torch.float16), ("bf16", torch.bfloat16)):
+        narrow = pack_sdf(wam_sdf, dtype)
+        check_lookup(f"WAM packed {name} f32", narrow, wam_pts, True)
+        check_lookup(f"WAM packed {name} f64", narrow.to(dtype=torch.float64),
+                     wam_pts.double(), True)
+        timed(name, narrow, wam_pts, {}, lambda: k3_bound(wam_pts, narrow, row_bytes=16))
+        del narrow
+
+    for name, field in _screens(dev, wam_sdf).items():
+        packed = pack_sdf(field)
+        check_lookup(f"WAM {name}-screened packed f32", packed, wam_pts, True, thresh=thresh)
+        check_lookup(f"WAM {name}-screened raw f64", field.to(dtype=torch.float64),
+                     wam_pts.double(), False, thresh=thresh.double())
+        kw = _variant(packed, True, thresh)
+        screen = {k: v for k, v in kw.items() if k != "corner_major"}
+        _, screened = screen_bound(wam_pts, packed.origin, packed.cell_size, **screen)
+        if name == "hull":
+            once, flops = packed.screen_boxes.numel() * 4 + S * 4, 22 * packed.screen_boxes.shape[0]
+        else:
+            once, flops = packed.coarse.numel() * 4 + S * 4, 15
+        timed(name, packed, wam_pts, kw,
+              lambda: k3_bound(wam_pts, packed, read=~screened, once_bytes=once,
+                               screen_flops=flops), screened=screened)
+        del packed
+
+    wam_packed = pack_sdf(wam_sdf)
+    again = device_ms(lambda: sdf_lookup_cuda(wam_pts, *_lookup_operands(wam_packed, True)),
+                      flush=True)
+    change = again[0] / default_ms - 1
+    log(f"K3 default (f32 packed, no screen) again: {_spread(again)}, "
+        f"{100 * change:+.2f}% against phase 5's {default_ms:.4f} ms")
+    if abs(change) > 0.03:
+        raise AssertionError(f"K3's default moved {100 * change:+.2f}% from phase 5")
+
+    # the corner-major planar table: PointRobot2D's queries on OneObstacle,
+    # MultiWorld2D's 8192 worlds of 64^2, the edges
+    rng = np.random.default_rng(15)
+    ds = generate_2d_dataset("OneObstacleDataset")
+    field = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, device=dev)
+    cm, rm = pack_planar_sdf(field, corner_major=True), pack_planar_sdf(field)
+    ext = np.array([ds.cols, ds.rows]) * ds.cell_size
+    pts2 = torch.as_tensor(
+        ds.origin + rng.uniform(-0.05, 1.05, (SUITE_BATCH["PointRobot2D"] * 61, 2)) * ext,
+        dtype=f32, device=dev)
+    check_lookup("OneObstacle corner-major f32", cm, pts2, True)
+    check_lookup("OneObstacle corner-major f64", cm.to(dtype=torch.float64), pts2.double(),
+                 True)
+    row_ms = device_ms(lambda: sdf_lookup_cuda(pts2, *_lookup_operands(rm, True)), flush=True)
+    # the four corners of the distinct cells read once, 16 B either way
+    timed("corner_major", cm, pts2, {"corner_major": True}, lambda: k3_bound(pts2, cm))
+    variants["corner_major"]["row_major_ms"] = row_ms[0]
+    log(f"K3 row-major at the same queries: {_spread(row_ms)}")
+
+    n, Bw, qpw = 64, SUITE_BATCH["MultiWorld2D"], 33
+    ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
+    X, Y = np.meshgrid(ys, ys)
+    cys = rng.uniform(-0.3, 0.3, Bw)
+    data = np.sqrt(X[None] ** 2 + (Y[None] - cys[:, None, None]) ** 2) - 0.3
+    worlds = pack_planar_sdf(PlanarSDF(
+        torch.tensor([-1.5, -1.5], dtype=f32, device=dev),
+        torch.tensor(3.0 / (n - 1), dtype=f32, device=dev),
+        torch.as_tensor(data, dtype=f32, device=dev)), corner_major=True)
+    ptsw = torch.as_tensor(rng.uniform(-1.6, 1.6, (Bw * qpw, 2)), dtype=f32, device=dev)
+    check_lookup("MultiWorld corner-major f32", worlds, ptsw, True, qpw)
+    check_lookup("MultiWorld corner-major f64", worlds.to(dtype=torch.float64),
+                 ptsw.double(), True, qpw)
+    check_lookup_edges("OneObstacle corner-major", cm, dev, (True,))
+    return variants, again[0]
+
+
+def variant_main_paths(dev, card, inputs):
+    """The main path (phase 6's inputs, B_MAIN, LM, float32, best of
+    REPEATS after a warm-up) once per option: float16 rows
+    (GPMP2_TPU_PACK_DTYPE), the hull screen and the coarse screen. Each
+    row gates at 0.95 converged and 0.99 collision-free and must launch
+    K1-K3; the screened rows must equal the unscreened row lane for lane
+    (final errors within rel 1e-6, the same converged flags). Returns each
+    option's launches."""
+    from unittest import mock
+
+    import torch
+
+    robot, sdf, setting, params, starts, goals = inputs
+    want_dtype = {"pack_f16": torch.float16}
+    _, res0, _, _ = timed_main_path("main path", path_solver(inputs, params))
+    screens = _screens(dev, sdf)
+    out = {}
+    for name, pack_dtype, screen in VARIANT_PATHS:
+        with mock.patch.dict(os.environ, {"GPMP2_TPU_PACK_DTYPE": pack_dtype}):
+            field = sdf if screen is None else screens[screen]
+            solve = path_solver((robot, field, setting, params, starts, goals), params)
+            if solve.sdf.packed.dtype != want_dtype.get(name, torch.float32):
+                raise AssertionError(f"{name}: packed as {solve.sdf.packed.dtype}")
+            best, res, cc, launches = timed_main_path(f"main path ({name})", solve)
+        conv, free, conv_frac, free_frac = main_path_quality(name, res, cc)
+        row = {"metric": f"wam7_lm_main_path_{name}", "batch": B_MAIN,
+               "converged_frac": conv_frac, "collision_free_frac": free_frac,
+               "mean_iters": float(res.iterations.float().mean()), "solve_time_s": best,
+               "plans_per_s": float((conv & free).sum()) / best, "launches": launches,
+               "card": card}
+        if screen is not None:
+            rel = ((res.error - res0.error).abs() / res0.error.abs()).max()
+            row["max_rel_error_vs_unscreened"] = float(rel)
+            row["bit_unequal_lanes"] = int((res.error != res0.error).sum())
+            if not (float(rel) <= 1e-6 and torch.equal(res.converged, res0.converged)):
+                raise AssertionError(f"{name}: the screened plans differ from the "
+                                     f"unscreened ones: {row}")
+        log(json.dumps(row))
+        out[name] = launches
+    return out
+
+
+def corner_major_suite(dev, card, wam_sdf):
+    """PointRobot2D and Arm3Limits2D at bench_suite.py's throughput batches
+    with the corner-major planar table against the row-major one: the same
+    corners through the same arithmetic, so equal errors, iterations and
+    converged flags in every lane; K3 must launch. Returns their launches."""
+    import torch
+    from gpmp2_tpu_torch.obstacle.sdf import pack_planar_sdf
+    from gpmp2_tpu_torch.planner import init_traj_straight_line, make_problem, plan_batch
+    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
+
+    out = {}
+    for name, robot, setting, _, (sdf, s, g), kwargs in suite_configs(dev, wam_sdf):
+        if name not in ("PointRobot2D", "Arm3Limits2D"):
+            continue
+        params = optimizer_params_from_setting(setting)
+        z = torch.zeros_like(s)
+        results = {}
+        for layout in ("row_major", "corner_major"):
+            field = pack_planar_sdf(sdf, corner_major=layout == "corner_major")
+            probs = make_problem(robot, field, s, z, g, z, setting, **kwargs)
+            init = init_traj_straight_line(probs.space, s, g, setting.total_step,
+                                           setting.total_time)
+            res, ms = best_of_3(lambda: plan_batch(probs, init, params))
+            reset_launches()
+            plan_batch(probs, init, params)
+            torch.cuda.synchronize()
+            results[layout] = (res, ms, read_launches())
+        (r0, ms0, _), (r1, ms1, launches) = results["row_major"], results["corner_major"]
+        same = (torch.equal(r0.error, r1.error) and torch.equal(r0.iterations, r1.iterations)
+                and torch.equal(r0.converged, r1.converged))
+        log(json.dumps({"config": f"{name}_corner_major", "batch": int(s.shape[0]),
+                        "solve_ms": ms1, "row_major_solve_ms": ms0,
+                        "lanes_equal": same, "launches": launches, "card": card}))
+        if not same:
+            raise AssertionError(f"{name}: the corner-major plans differ from the row-major")
+        if launches["sdf_lookup"] == 0:
+            raise AssertionError(f"{name}: K3 was not launched: {launches}")
+        out[name] = launches
+    return out
+
+
+def sdf_variants_phase(dev, card, inputs, wam_pts, default_ms):
+    """Phase 15: K3's variants against their plain versions and timed, the
+    main path once per option, the corner-major suite rows. Returns the
+    kernels' line's `variants`, with each option's K3 launches, and the
+    default instantiation's time in this phase."""
+    robot, sdf, setting, *_ = inputs
+    eps_total = robot.sphere_radii + setting.epsilon
+    t0 = time.perf_counter()
+    variants, again_ms = check_variant_lookups(dev, sdf, wam_pts, eps_total, default_ms)
+    log(f"phase 15's kernel checks took {time.perf_counter() - t0:.1f} s")
+    for name, launches in variant_main_paths(dev, card, inputs).items():
+        variants[{"pack_f16": "f16", "screen_boxes": "hull", "screen_sdf": "coarse"}[name]][
+            "launches_main_path"] = launches["sdf_lookup"]
+    for name, launches in corner_major_suite(dev, card, sdf).items():
+        variants["corner_major"][f"launches_{name}"] = launches["sdf_lookup"]
+    return variants, again_ms
+
+
 def main():
     import torch
 
@@ -2660,7 +2986,8 @@ def main():
     k2 = check_fk_arm(dev)
     inputs = main_path_inputs(dev)
     robot, sdf, setting, _, starts, goals = inputs
-    k3 = check_sdf_lookup(dev, sdf, main_path_queries(robot, sdf, setting, starts, goals))
+    wam_pts = main_path_queries(robot, sdf, setting, starts, goals)
+    k3 = check_sdf_lookup(dev, sdf, wam_pts)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. main path
@@ -2703,6 +3030,11 @@ def main():
     k3["launches_phase14"] = {"ts_planner": phase14["ts_planner"]["sdf_lookup"],
                               "batch_fleet": phase14["batch_fleet"]["sdf_lookup"]}
     log(f"long horizon and the mesh done at {time.perf_counter() - t_start:.1f} s")
+
+    # 15. the opt-in SDF variants
+    k3["variants"], k3["ms_phase15"] = sdf_variants_phase(dev, card, inputs, wam_pts,
+                                                          k3["ms"])
+    log(f"SDF variants done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "btsolve", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/btsolve.cu",

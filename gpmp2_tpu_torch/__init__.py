@@ -14,7 +14,8 @@ the SE(2) mobile base (`Pose2MobileBaseFK`, the Lie GP prior, vehicle
 dynamics) and the mobile manipulators on SE(2) x R^n states (one or two
 arms, with or without a torso lift; the presets of `generate_mobile_arm`,
 PR2 and Vector among them), 2D and 3D SDFs (corner-packed or raw, shared
-or one world per problem), joint and velocity limits, the GP prior and
+or one world per problem; opt-in float16 or bfloat16 tables, the
+corner-major planar table, and the hull and coarse screens), joint and velocity limits, the GP prior and
 interpolated obstacle factors, self-collision, workspace priors and the
 end-effector goal, the float64 give-up rescue, incremental replanning
 (`ISAM2TrajOptimizer`, and `ISAM2BatchSessions` for a fleet of sessions

@@ -16,7 +16,7 @@ from ..device import resolve_device
 from ..obstacle.sdf import PlanarSDF, SignedDistanceField
 
 __all__ = ["signed_distance_field_2d", "signed_distance_field_3d",
-           "planar_sdf_from_occupancy", "sdf_from_occupancy"]
+           "planar_sdf_from_occupancy", "sdf_from_occupancy", "dataset_screen_boxes"]
 
 
 def _signed_distance_field(ground_truth_map, cell_size) -> np.ndarray:
@@ -52,10 +52,28 @@ def planar_sdf_from_occupancy(origin, cell_size, occupancy, dtype=torch.float32,
 
 
 def sdf_from_occupancy(origin, cell_size, occupancy_xyz, dtype=torch.float32,
-                       device=None) -> SignedDistanceField:
+                       device=None, screen_boxes=None) -> SignedDistanceField:
     """3D occupancy in the reference dataset layout (X, Y, Z)
     (generate3Ddataset.m:10-12) -> SignedDistanceField with (Z, Y, X) data
-    on `device` (WAMPlannerExample.m:23-26 performs the same transpose)."""
+    on `device` (WAMPlannerExample.m:23-26 performs the same transpose).
+    `screen_boxes` (K, 2, 3), the obstacle boxes' voxel-centre hulls
+    (`dataset_screen_boxes`), enables the hull screen of the lookup."""
     field = signed_distance_field_3d(occupancy_xyz, cell_size)
-    return SignedDistanceField(*_tensors(origin, cell_size,
-                                         np.transpose(field, (2, 1, 0)), dtype, device))
+    origin, cell, data = _tensors(origin, cell_size, np.transpose(field, (2, 1, 0)),
+                                  dtype, device)
+    boxes = (None if screen_boxes is None else
+             torch.as_tensor(np.asarray(screen_boxes, np.float64), dtype=dtype,
+                             device=data.device))
+    return SignedDistanceField(origin, cell, data, screen_boxes=boxes)
+
+
+def dataset_screen_boxes(ds, dtype=np.float64) -> np.ndarray:
+    """(K, 2, 3) world [lo; hi] voxel-centre hulls of a Dataset3D's boxes,
+    from its `corner_idx` rows ([x_lo, x_hi, y_lo, y_hi, z_lo, z_hi] cell
+    indices, generate3d.py:add_obstacle_3d): world = origin + idx *
+    cell_size (gpmp2_tpu/datasets/sdf_gen.py:90-99)."""
+    ci = np.asarray(ds.corner_idx, dtype)
+    origin = np.asarray(ds.origin, dtype)
+    lo = origin[None, :] + ci[:, [0, 2, 4]] * ds.cell_size
+    hi = origin[None, :] + ci[:, [1, 3, 5]] * ds.cell_size
+    return np.ascontiguousarray(np.stack([lo, hi], axis=1))

@@ -27,10 +27,12 @@ def hinge_loss(dist, eps_total, in_range):
 
 def obstacle_factor_error(model: RobotModel, sdf: SignedDistanceField, q, eps):
     """3D obstacle factor residual: q (..., d) -> (..., S)
-    (ObstacleSDFFactor::evaluateError, ObstacleSDFFactor-inl.h:17-60)."""
+    (ObstacleSDFFactor::evaluateError, ObstacleSDFFactor-inl.h:17-60); a
+    screen on the field takes eps_total as its threshold
+    (gpmp2_tpu/obstacle/factors.py:47-55)."""
     centers = sphere_centers_world(model, q)
     eps_total = model.sphere_radii + eps
-    dist, *_, ok = sdf_lookup_points(sdf, centers)
+    dist, *_, ok = sdf_lookup_points(sdf, centers, eps_total)
     return hinge_loss(dist, eps_total, ok)
 
 

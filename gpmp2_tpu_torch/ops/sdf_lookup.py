@@ -6,11 +6,11 @@
 profile_dma5.py:83,102,158, profile_dma6.py:61-166, profile_dma7.py:58,
 profile_dma8.py:68,146, profile_dma9.py:78, profile_dma_gather.py:214):
 each computes `table[idx]` over a corner-packed SDF table, the gather stage
-of gpmp2_tpu/obstacle/sdf.py:sdf_lookup_components (:436) and
-planar_sdf_lookup_components (:396). The kernel runs that whole lookup, so
-the gathered rows stay in registers. `sdf_lookup_torch` is the plain
-PyTorch version of the same function: a `table[idx]` row gather (or the
-per-corner gather of the raw field) and the same arithmetic.
+of gpmp2_tpu/obstacle/sdf.py:sdf_lookup (:254), sdf_lookup_components
+(:436) and planar_sdf_lookup_components (:396). The kernel runs that whole
+lookup, so the gathered rows stay in registers. `sdf_lookup_torch` is the
+plain PyTorch version of the same function: a `table[idx]` row gather (or
+the per-corner gather of the raw field) and the same arithmetic.
 `sdf_lookup_rows` takes the plain version for CPU tensors and the kernel
 for CUDA tensors; there is no other path.
 
@@ -18,11 +18,32 @@ Operands (both versions):
 - pts (N, P): query points, P >= dim; coordinate k of point i is
   pts[i, k] (x, y[, z]); the kernel reads them in place, so K2's sphere
   centres (N, 3) serve a planar lookup too;
-- table: the packed rows (W * cells, 2^dim), or the raw field flattened
-  to (W * cells,); `grid` is (rows, cols) or (nz, rows, cols);
+- table, in one of three layouts (`grid` is (rows, cols) or (nz, rows,
+  cols), cells its product, W the number of worlds):
+  - raw: the field flattened to (W * cells,);
+  - packed: (W * cells, 2^dim) corner rows; a 3D table may be stored in
+    float16 or bfloat16 under float32 or float64 queries, its corners
+    converted to the query type after the read
+    (gpmp2_tpu/obstacle/sdf.py:100-122, 344-345);
+  - corner-major (2D only, `corner_major=True`): (W, 4, cells), corner k
+    of cell l at [w, k, l] (gpmp2_tpu/obstacle/sdf.py:132-161);
 - origin (>= dim,), cell (): the grid's world frame;
 - queries_per_world: 0 for one shared world, else query i reads world
   i // queries_per_world.
+
+Screens (3D, one shared world; gpmp2_tpu/obstacle/sdf.py:298-338,
+390-392): with `thresh` (S,) given, query i's threshold is thresh[i % S]
+(S divides N; the planner's per-sphere eps_total needs no expansion to N)
+and a lower bound of the distance decides whether the query needs its row:
+- hull screen (`boxes` (K, 2, 3), world [lo; hi] corners of the occupied
+  voxel-centre hulls): bound = min_k |p - box_k| - sqrt(3) cell, screened
+  where bound > max(thresh, 0);
+- coarse screen (`coarse` (zc, rc, cc) min-pooled bounds at `coarse_cell`
+  resolution): bound = coarse at the point's coarse cell, its index
+  clipped then truncated, screened where bound > thresh.
+A screened query returns dist = bound, a zero gradient and its in-range
+mask; the hinge is zero there either way. The kernel skips the screened
+query's row read.
 
 Returns (dist, gx, gy[, gz], ok), each (N,): distances and world-frame
 gradients in the input dtype, ok the in-range mask.
@@ -31,13 +52,21 @@ gradients in the input dtype, ok the in-range mask.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .. import _build
 
-__all__ = ["corner_offsets", "sdf_lookup_torch", "sdf_lookup_cuda",
-           "sdf_lookup_rows"]
+__all__ = ["corner_offsets", "screen_bound", "sdf_lookup_torch", "sdf_lookup_cuda",
+           "sdf_lookup_rows", "NARROW_DTYPES"]
+
+# storage types of a packed 3D table narrower than its queries, in the
+# order of the kernel's `storage` code (1, 2)
+NARROW_DTYPES = (torch.float16, torch.bfloat16)
+# hull boxes the kernel stages in shared memory (48 KB of float64)
+_MAX_SCREEN_BOXES = 1024
+_SQRT3 = math.sqrt(3.0)
 
 
 def corner_offsets(grid):
@@ -59,7 +88,37 @@ def _low_corner(coord, size):
     return c, idx
 
 
-def sdf_lookup_torch(pts, table, origin, cell, grid, queries_per_world=0):
+def screen_bound(pts, origin, cell, thresh, boxes=None, coarse=None, coarse_cell=None):
+    """The screen's lower bound of each query's distance (N,) and the mask
+    of the queries it screens, in the arithmetic order of the kernel (no
+    fused multiply-adds), so both screen the same queries."""
+    bound = _screen_bound(pts, origin, cell, boxes, coarse, coarse_cell)
+    t = thresh.repeat(pts.shape[0] // thresh.shape[0])
+    if boxes is not None:
+        t = torch.clamp(t, min=0.0)
+    return bound, ~(bound <= t)
+
+
+def _screen_bound(pts, origin, cell, boxes, coarse, coarse_cell):
+    p = pts[:, :3]
+    if boxes is not None:
+        zero = torch.zeros((), dtype=pts.dtype, device=pts.device)
+        lo, hi = boxes[:, 0, :], boxes[:, 1, :]
+        d = torch.maximum(torch.maximum(lo - p[:, None, :], p[:, None, :] - hi), zero)
+        hull = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                          + d[..., 2] * d[..., 2])
+        return hull.min(-1).values - cell * _SQRT3
+    zc, rc, cc = coarse.shape
+    # clipped, then truncated; NaN gives index 0, as the JAX cast does
+    idx = [torch.clamp(torch.nan_to_num((p[:, k] - origin[k]) / coarse_cell, nan=0.0),
+                       0.0, size - 1.0).to(torch.int64)
+           for k, size in enumerate((cc, rc, zc))]
+    return coarse.reshape(-1)[(idx[2] * rc + idx[1]) * cc + idx[0]]
+
+
+def sdf_lookup_torch(pts, table, origin, cell, grid, queries_per_world=0, *,
+                     corner_major=False, thresh=None, boxes=None, coarse=None,
+                     coarse_cell=None):
     """Plain PyTorch version of K3 (see the module docstring)."""
     dim = len(grid)
     N = pts.shape[0]
@@ -76,14 +135,19 @@ def sdf_lookup_torch(pts, table, origin, cell, grid, queries_per_world=0):
     base = idx[1] * cols + idx[0]
     if dim == 3:
         base = base + idx[2] * (rows * cols)
+    cells = 1
+    for g in grid:
+        cells *= g
+    world = None
     if queries_per_world:
-        cells = 1
-        for g in grid:
-            cells *= g
         world = torch.arange(N, device=pts.device) // queries_per_world
         base = base + world * cells
-    if table.dim() == 2:
-        v = table[base].unbind(-1)
+    if corner_major:
+        flat = table.reshape(-1)
+        start = base if world is None else base + 3 * cells * world
+        v = [flat[start + k * cells] for k in range(4)]
+    elif table.dim() == 2:
+        v = table[base].to(pts.dtype).unbind(-1)
     else:
         v = [table[base + o] for o in corner_offsets(grid)]
     fx, fy = fr[0], fr[1]
@@ -116,10 +180,18 @@ def sdf_lookup_torch(pts, table, origin, cell, grid, queries_per_world=0):
            + fy * (1 - fx) * (d110 - d010)
            + (1 - fy) * fx * (d101 - d001)
            + fy * fx * (d111 - d011))
-    return dist, g_col / cell, g_row / cell, g_z / cell, ok
+    out = [dist, g_col / cell, g_row / cell, g_z / cell]
+    if thresh is not None:
+        bound, screened = screen_bound(pts, origin, cell, thresh, boxes, coarse,
+                                       coarse_cell)
+        zero = torch.zeros((), dtype=pts.dtype, device=pts.device)
+        out = [torch.where(screened, bound, out[0])] + [torch.where(screened, zero, g)
+                                                       for g in out[1:]]
+    return (*out, ok)
 
 
-def _check_operands(pts, table, origin, cell, grid, queries_per_world):
+def _check_operands(pts, table, origin, cell, grid, queries_per_world, corner_major,
+                    thresh, boxes, coarse, coarse_cell):
     """Raise unless the operands are what the kernel takes."""
     dim = len(grid)
     if dim not in (2, 3) or min(grid) < 2:
@@ -138,13 +210,44 @@ def _check_operands(pts, table, origin, cell, grid, queries_per_world):
                          f"divide the {N} queries")
     worlds = N // queries_per_world if queries_per_world else 1
     k = 2 ** dim
-    want = (worlds * cells, k) if table.dim() == 2 else (worlds * cells,)
-    for name, t, shape in (("pts", pts, None), ("table", table, want),
-                           ("origin", origin, None), ("cell", cell, ())):
+    if corner_major:
+        if dim != 2:
+            raise ValueError("a corner-major table is 2D only")
+        want = (worlds, 4, cells)
+    else:
+        want = (worlds * cells, k) if table.dim() == 2 else (worlds * cells,)
+    narrow = (dim == 3 and table.dim() == 2 and not corner_major
+              and table.dtype in NARROW_DTYPES)
+    operands = [("pts", pts, None, dtype), ("table", table, want,
+                                             table.dtype if narrow else dtype),
+                ("origin", origin, None, dtype), ("cell", cell, (), dtype)]
+    if thresh is not None:
+        if dim != 3 or queries_per_world:
+            raise ValueError("a screen needs a 3D field of one shared world")
+        if (boxes is None) == (coarse is None):
+            raise ValueError("a screen takes boxes or a coarse table, one of the two")
+        if thresh.dim() != 1 or thresh.shape[0] == 0 or N % thresh.shape[0]:
+            raise ValueError(f"thresh must be (S,) with S dividing the {N} queries, "
+                             f"got {tuple(thresh.shape)}")
+        operands.append(("thresh", thresh, None, dtype))
+        if boxes is not None:
+            if boxes.dim() != 3 or tuple(boxes.shape[1:]) != (2, 3) or not (
+                    1 <= boxes.shape[0] <= _MAX_SCREEN_BOXES):
+                raise ValueError(f"boxes must be (K, 2, 3) with 1 <= K <= "
+                                 f"{_MAX_SCREEN_BOXES}, got {tuple(boxes.shape)}")
+            operands.append(("boxes", boxes, None, dtype))
+        else:
+            if coarse.dim() != 3 or coarse_cell is None:
+                raise ValueError("coarse must be (zc, rc, cc) with its coarse_cell")
+            operands += [("coarse", coarse, None, dtype),
+                         ("coarse_cell", coarse_cell, (), dtype)]
+    elif boxes is not None or coarse is not None:
+        raise ValueError("a screen needs its thresholds")
+    for name, t, shape, want_dtype in operands:
         if not t.is_cuda or t.device != device:
             raise ValueError(f"{name} must be a CUDA tensor on {device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} like pts, got {t.dtype}")
+        if t.dtype != want_dtype:
+            raise ValueError(f"{name} must be {want_dtype}, got {t.dtype}")
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -155,11 +258,14 @@ def _check_operands(pts, table, origin, cell, grid, queries_per_world):
         raise ValueError("a packed table must start on a 16-byte boundary")
 
 
-def sdf_lookup_cuda(pts, table, origin, cell, grid, queries_per_world=0):
+def sdf_lookup_cuda(pts, table, origin, cell, grid, queries_per_world=0, *,
+                    corner_major=False, thresh=None, boxes=None, coarse=None,
+                    coarse_cell=None):
     """Launch kernel K3 (csrc/sdf_lookup.cu) on CUDA tensors; same semantics
     as `sdf_lookup_torch`. Raises on what the kernel does not take."""
     grid = tuple(int(g) for g in grid)
-    _check_operands(pts, table, origin, cell, grid, queries_per_world)
+    _check_operands(pts, table, origin, cell, grid, queries_per_world, corner_major,
+                    thresh, boxes, coarse, coarse_cell)
     dim = len(grid)
     N = pts.shape[0]
     out = torch.empty((dim + 1, N), dtype=pts.dtype, device=pts.device)
@@ -167,15 +273,29 @@ def sdf_lookup_cuda(pts, table, origin, cell, grid, queries_per_world=0):
     if N == 0:
         return (*out.unbind(0), ok)
     nz = grid[0] if dim == 3 else 1
+    layout = 2 if corner_major else int(table.dim() == 2)
+    storage = (NARROW_DTYPES.index(table.dtype) + 1
+               if table.dtype in NARROW_DTYPES and dim == 3 else 0)
+    screen = 0 if thresh is None else (1 if boxes is not None else 2)
+    null = ctypes.c_void_p(0)
+    n_thresh = 0 if thresh is None else thresh.shape[0]
+    if screen == 1:
+        screen_table, screen_shape, ccell = boxes.data_ptr(), (boxes.shape[0], 0, 0), null
+    elif screen == 2:
+        screen_table, screen_shape, ccell = (coarse.data_ptr(), tuple(coarse.shape),
+                                             coarse_cell.data_ptr())
+    else:
+        screen_table, screen_shape, ccell = null, (0, 0, 0), null
     lib = _build.kernels_lib()
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gpmp2_sdf_lookup(
             pts.data_ptr(), pts.shape[1], table.data_ptr(), origin.data_ptr(),
             cell.data_ptr(), out.data_ptr(), ok.data_ptr(), N,
-            queries_per_world, nz, grid[-2], grid[-1], dim,
-            int(table.dim() == 2), int(pts.dtype == torch.float64),
-            ctypes.c_void_p(stream))
+            queries_per_world, nz, grid[-2], grid[-1], dim, layout, storage,
+            int(pts.dtype == torch.float64), screen,
+            null if thresh is None else thresh.data_ptr(), n_thresh, screen_table,
+            ccell, *screen_shape, ctypes.c_void_p(stream))
     _build.check(rc, "sdf_lookup launch")
     sdf_lookup_cuda.launches += 1
     return (*out.unbind(0), ok)
@@ -184,12 +304,14 @@ def sdf_lookup_cuda(pts, table, origin, cell, grid, queries_per_world=0):
 sdf_lookup_cuda.launches = 0
 
 
-def sdf_lookup_rows(pts, table, origin, cell, grid, queries_per_world=0):
+def sdf_lookup_rows(pts, table, origin, cell, grid, queries_per_world=0, **variant):
     """The lookup of N query points (see the module docstring): kernel K3
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors. `variant` holds
+    the keywords of a corner-major table or a screen."""
     if pts.is_cuda:
         return sdf_lookup_cuda(pts.contiguous(), table, origin, cell, grid,
-                               queries_per_world)
+                               queries_per_world, **variant)
     if pts.device.type == "cpu":
-        return sdf_lookup_torch(pts, table, origin, cell, grid, queries_per_world)
+        return sdf_lookup_torch(pts, table, origin, cell, grid, queries_per_world,
+                                **variant)
     raise ValueError(f"no SDF lookup for device {pts.device}")

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -29,21 +30,41 @@ from .traj_utils import init_traj_straight_line
 __all__ = ["make_problem", "set_workspace_prior", "plan_batch", "batch_traj_optimize",
            "optimizer_params_from_setting", "collision_cost_batch", "SDF_PACK_BUDGET"]
 
-# bytes of packed table that `make_problem` builds by default (the JAX
-# package's default budget, gpmp2_tpu/planner/batch.py:46-66)
+# bytes of packed table that `make_problem` builds by default, unless the
+# environment's GPMP2_TPU_SDF_PACK_BUDGET says otherwise (the JAX package's
+# default budget, gpmp2_tpu/planner/batch.py:46-75)
 SDF_PACK_BUDGET = 2 << 30
+# GPMP2_TPU_PACK_DTYPE's values that store a 3D table narrower ("", "none"
+# and "auto" keep the field's type)
+_PACK_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def _pack_dtype(sdf):
+    """The storage type GPMP2_TPU_PACK_DTYPE asks for a 3D table: None for
+    the field's own."""
+    name = os.environ.get("GPMP2_TPU_PACK_DTYPE", "")
+    if name in ("", "none", "auto") or name == str(sdf.data.dtype).split(".")[-1]:
+        return None
+    if name not in _PACK_DTYPES:
+        raise ValueError(f"GPMP2_TPU_PACK_DTYPE={name!r}: the packed table may be "
+                         f"{', '.join(_PACK_DTYPES)} or the field's {sdf.data.dtype}")
+    return _PACK_DTYPES[name]
 
 
 def _maybe_pack_sdf(sdf, sdf_pack):
-    """Pack (True), leave unpacked (False), or pack when the packed table
-    stays within SDF_PACK_BUDGET bytes (None)."""
+    """Pack (True), leave unpacked (False), or pack when the packed table,
+    counted at the field's bytes times 4 or 8, stays within the budget
+    (None). A 3D table is stored in GPMP2_TPU_PACK_DTYPE."""
     if sdf_pack is False or sdf.packed is not None:
         return sdf
     if sdf_pack is None:
+        budget = int(os.environ.get("GPMP2_TPU_SDF_PACK_BUDGET", SDF_PACK_BUDGET))
         factor = 2 ** sdf.DIM
-        if sdf.data.numel() * sdf.data.element_size() * factor > SDF_PACK_BUDGET:
+        if sdf.data.numel() * sdf.data.element_size() * factor > budget:
             return sdf
-    return pack_planar_sdf(sdf) if isinstance(sdf, PlanarSDF) else pack_sdf(sdf)
+    if isinstance(sdf, PlanarSDF):
+        return pack_planar_sdf(sdf)
+    return pack_sdf(sdf, _pack_dtype(sdf))
 
 
 def _check_setting(setting: TrajOptimizerSetting, d: int, vehicle_dynamics: bool,
@@ -117,7 +138,11 @@ def make_problem(
     size B. Robot and SDF are cast to `dtype` and moved to `device`
     (defaults: start_pose's dtype and device when it is a tensor, else
     float32 on CUDA). `sdf_pack`: True packs the SDF's corner table, False
-    leaves it unpacked, None packs when the table fits SDF_PACK_BUDGET.
+    leaves it unpacked, None packs when the table fits the budget
+    (GPMP2_TPU_SDF_PACK_BUDGET bytes, default SDF_PACK_BUDGET); a 3D
+    table is stored in GPMP2_TPU_PACK_DTYPE (float16, bfloat16; default
+    the field's type). A screen on the SDF (`screen_sdf`, `screen_boxes`)
+    screens the obstacle lookups.
     `flag_vehicle_dynamics` adds the vehicle-dynamics factor at every state,
     with precision 1/dyn_sigma^2 (VehicleDynamics.h).
     `self_collision_pairs`: rows (sphere_a, sphere_b, eps, sigma), one
@@ -269,7 +294,8 @@ def _rescue_gave_up_f64(problems: TrajProblem, init_traj: Trajectory,
     precision converges (gpmp2_tpu/planner/batch.py:381-466). The lanes
     that gave up are solved again from their initial trajectory in float64
     through the kernels' float64 instantiations, without the packed SDF
-    table (the lookup reads the raw float64 field), and their results are
+    table (the lookup reads the raw float64 field; a screen stays, in
+    float64), and their results are
     scattered back in the input dtype. No-op when nothing gave up."""
     idx = torch.nonzero(res.gave_up).flatten()
     if idx.numel() == 0:

@@ -259,9 +259,14 @@ def _obs_res_and_jac(robot: RobotModel, sdf, eps, centers, Jc):
     spheres; inactive and out-of-range rows are zero
     (ObstacleSDFFactor-inl.h:40-57, ObstaclePlanarSDFFactor-inl.h:40-55,
     ObstacleCost.h:31-49). The lookup's leading axis is the world axis on
-    a per-problem field."""
+    a per-problem field. A 3D field's screen takes eps_total as its
+    threshold on every route here (the planner, FactorGraph, the
+    multigraph; the JAX package screens these sites,
+    gpmp2_tpu/planner/problem.py:183-184, 219-220, 316, but not its fused
+    CPU arm route, :260-261): a screened sphere is inactive either way, so
+    residuals and Jacobians are those of the unscreened lookup."""
     eps_total = robot.sphere_radii + eps  # (S,)
-    dist, gx, gy, *gz, ok = sdf_lookup_points(sdf, centers)
+    dist, gx, gy, *gz, ok = sdf_lookup_points(sdf, centers, eps_total)
     dot = gx[..., None] * Jc[..., 0, :] + gy[..., None] * Jc[..., 1, :]
     if gz:
         dot = dot + gz[0][..., None] * Jc[..., 2, :]
@@ -275,9 +280,10 @@ def _obs_res_and_jac(robot: RobotModel, sdf, eps, centers, Jc):
 def _obs_err(robot: RobotModel, sdf, eps, centers):
     """Hinge residuals (..., S) of sphere centres (..., S, 3), without
     Jacobians: the error-only twin of `_obs_res_and_jac`, through the same
-    lookup."""
-    dist, *_, ok = sdf_lookup_points(sdf, centers)
-    return hinge_loss(dist, robot.sphere_radii + eps, ok)
+    lookup and screen."""
+    eps_total = robot.sphere_radii + eps
+    dist, *_, ok = sdf_lookup_points(sdf, centers, eps_total)
+    return hinge_loss(dist, eps_total, ok)
 
 
 def _selfcoll_res(prob: TrajProblem, centers):

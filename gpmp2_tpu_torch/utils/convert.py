@@ -119,22 +119,48 @@ def mobile_arm_from_numpy(arms, sphere_link_ids, sphere_radii, sphere_centers, *
                   "mobile_arm_from_numpy", dtype, device)
 
 
-def sdf_from_numpy(origin, cell_size, data, packed=None, *, dtype=torch.float32,
+def _packed_table(packed, dtype, device):
+    """A JAX field's packed table: a float16 or bfloat16 table keeps its
+    storage type (numpy holds bfloat16 as ml_dtypes' type, read here by
+    its bits), any other is cast to `dtype`."""
+    if packed is None:
+        return None
+    a = np.asarray(packed)
+    device = resolve_device(device)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    if a.dtype == np.float16:
+        return torch.as_tensor(np.array(a), device=device)
+    return _converter(dtype, device)(a)
+
+
+def sdf_from_numpy(origin, cell_size, data, packed=None, *, coarse=None,
+                   coarse_cell=None, screen_boxes=None, dtype=torch.float32,
                    device=None) -> SignedDistanceField:
     """SignedDistanceField from origin (3,), cell size (), ([W,] Z, Y, X)
-    data and, optionally, its packed table ([W,] cells, 8)."""
+    data and, optionally, its packed table ([W,] cells, 8; float16 and
+    bfloat16 tables keep their type), the coarse screen table and cell
+    (`screen_sdf`) and the hull screen's boxes (K, 2, 3)."""
     f = _converter(dtype, device)
+    opt = lambda x: None if x is None else f(x)  # noqa: E731
     return SignedDistanceField(f(origin), f(cell_size), f(data),
-                               None if packed is None else f(packed))
+                               _packed_table(packed, dtype, device), opt(coarse),
+                               opt(coarse_cell), opt(screen_boxes))
 
 
 def planar_sdf_from_numpy(origin, cell_size, data, packed=None, *,
                           dtype=torch.float32, device=None) -> PlanarSDF:
     """PlanarSDF from origin (2,), cell size (), ([W,] rows, cols) data and,
-    optionally, its row-major packed table ([W,] cells, 4)."""
+    optionally, its packed table: row-major ([W,] cells, 4), or
+    corner-major ([W,] 4, cells), told apart by the JAX package's shape
+    rule (gpmp2_tpu/obstacle/sdf.py:125-129: corner-major where the last
+    two sizes are 4 and not 4)."""
     f = _converter(dtype, device)
+    shape = np.shape(packed)
+    corner_major = len(shape) >= 2 and shape[-2] == 4 and shape[-1] != 4
     return PlanarSDF(f(origin), f(cell_size), f(data),
-                     None if packed is None else f(packed))
+                     None if packed is None else f(packed), corner_major)
 
 
 def problem_from_numpy(robot: RobotModel, sdf, N: int, *, flag_pos_limit=False,

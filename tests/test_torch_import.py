@@ -47,14 +47,12 @@ def test_scripts_leave_jax_out():
         assert not bad, (path, bad)
 
 
-# The JAX package's public names the port does not have, by subpackage:
-# left for Slice H (the screened SDF), or left out on purpose
-# (`infer_batch_axes`: the port's problems carry an explicit batch axis;
-# the unbatched XLA solve). The port's `ops/__init__.py` is empty: its K1
-# entry `batched_block_tridiag_solve` is exported at the top level.
+# The JAX package's public names the port does not have, by subpackage,
+# all left out on purpose (`infer_batch_axes`: the port's problems carry
+# an explicit batch axis; the unbatched XLA solve). The port's
+# `ops/__init__.py` is empty: its K1 entry `batched_block_tridiag_solve`
+# is exported at the top level.
 NOT_PORTED = {
-    "datasets": {"dataset_screen_boxes"},
-    "obstacle": {"screen_sdf"},
     "ops": {"batched_block_tridiag_solve", "block_tridiag_solve_pallas"},
     "planner": {"infer_batch_axes"},
     "solver": {"block_tridiag_solve"},

@@ -8,6 +8,8 @@ installed. Every test is marked `cuda` and skips without an NVIDIA GPU:
 The plain versions run in float64 on the same (rounded) inputs.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -229,17 +231,120 @@ def test_sdf_lookup_kernel_matches_plain(cuda_device, dim, worlds, packed, dtype
     qpw = 5000 if worlds else 0
     got = sdf_lookup_cuda(pts, table, sdf.origin, sdf.cell_size, sdf.grid, qpw)
     ref = sdf_lookup_torch(pts, table, sdf.origin, sdf.cell_size, sdf.grid, qpw)
-    # same arithmetic in the same dtype on the same inputs; only FMA
-    # contraction differs, so a few ulps of the field's scale
+    _hold_lookup(got, ref, dtype)
+
+
+def _hold_lookup(got, ref, dtype):
+    """K3's outputs against its plain version's on the same inputs: the
+    same arithmetic in the same dtype, only FMA contraction differs, so a
+    few ulps of the field's scale; the masks equal, and the NaN x
+    coordinate of query 0 reaches dist (and the gradients that read fx)."""
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert torch.equal(got[-1], ref[-1])
-    # the NaN x coordinate reaches dist (and the gradients that read fx)
     assert torch.isnan(got[0][0]) and torch.isnan(ref[0][0])
     for g, r in zip(got[:-1], ref[:-1]):
         fin = ~torch.isnan(r)
         assert torch.equal(~torch.isnan(g), fin)
         scale = float(r[fin].abs().max())
         assert float((g[fin] - r[fin]).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("narrow", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sdf_lookup_kernel_narrow_rows(cuda_device, narrow, dtype):
+    """Packed 3D rows in float16 / bfloat16 under float32 and float64 queries."""
+    from gpmp2_tpu_torch.obstacle.sdf import pack_sdf
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    sdf, pts = _lookup_case(3, 0, 5000, dtype, cuda_device)
+    table = pack_sdf(dataclasses.replace(sdf, packed=None), narrow).packed
+    args = (table, sdf.origin, sdf.cell_size, sdf.grid)
+    _hold_lookup(sdf_lookup_cuda(pts, *args), sdf_lookup_torch(pts, *args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("worlds", [0, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sdf_lookup_kernel_corner_major(cuda_device, worlds, dtype):
+    """The corner-major planar table, one shared world or one per problem,
+    against the plain version and the row-major kernel."""
+    from gpmp2_tpu_torch.obstacle.sdf import pack_planar_sdf
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    sdf, pts = _lookup_case(2, worlds, 5000, dtype, cuda_device)
+    cm = pack_planar_sdf(dataclasses.replace(sdf, packed=None), corner_major=True)
+    table = cm.packed.reshape(-1, 4, cm.cells)
+    args = (table, sdf.origin, sdf.cell_size, sdf.grid, 5000 if worlds else 0)
+    got = sdf_lookup_cuda(pts, *args, corner_major=True)
+    _hold_lookup(got, sdf_lookup_torch(pts, *args, corner_major=True), dtype)
+    # the same corners through the same arithmetic as the row-major kernel
+    rows = sdf_lookup_cuda(pts, sdf.packed.reshape(-1, 4), *args[1:])
+    assert torch.equal(got[-1], rows[-1])
+    for g, r in zip(got[:-1], rows[:-1]):
+        assert torch.equal(g.isnan(), r.isnan()) and torch.equal(g.nan_to_num(), r.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("screen", ["hull", "coarse"])
+@pytest.mark.parametrize("table", ["packed", "raw", "float16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S", [1, 4])
+def test_sdf_lookup_kernel_screens(cuda_device, screen, table, dtype, S):
+    """The hull and coarse screens on each 3D table form, with one
+    threshold or one per sphere (query i reads thresh[i % S]); the kernel
+    screens exactly the plain version's queries."""
+    from gpmp2_tpu_torch.obstacle.sdf import pack_sdf, screen_sdf
+    from gpmp2_tpu_torch.ops.sdf_lookup import screen_bound, sdf_lookup_cuda, sdf_lookup_torch
+
+    sdf, pts = _lookup_case(3, 0, 5000, dtype, cuda_device)
+    raw = dataclasses.replace(sdf, packed=None)
+    rng = np.random.default_rng(8)
+    # thresholds within each bound's range: the hull distances of random
+    # boxes, the min-pooled values of the normal field
+    if screen == "hull":
+        lo = rng.uniform([-0.5, -1.0, 0.25], [1.5, 0.5, 1.25], (12, 3))
+        boxes = np.stack([lo, lo + rng.uniform(0.0, 0.3, (12, 3))], axis=1)
+        kw, span = {"boxes": torch.as_tensor(boxes, dtype=dtype, device=cuda_device)}, (-0.5, 1.0)
+    else:
+        s = screen_sdf(raw, 4)
+        kw, span = {"coarse": s.coarse, "coarse_cell": s.coarse_cell}, (-3.0, -2.0)
+    kw["thresh"] = torch.as_tensor(rng.uniform(*span, S), dtype=dtype, device=cuda_device)
+    t = {"packed": sdf.packed.reshape(-1, 8), "raw": sdf.data.reshape(-1),
+         "float16": pack_sdf(raw, torch.float16).packed}[table]
+    args = (t, sdf.origin, sdf.cell_size, sdf.grid)
+    got = sdf_lookup_cuda(pts, *args, **kw)
+    _hold_lookup(got, sdf_lookup_torch(pts, *args, **kw), dtype)
+    _, screened = screen_bound(pts, sdf.origin, sdf.cell_size, **kw)
+    assert 0 < int(screened.sum()) < pts.shape[0]
+    assert not bool(torch.cat([g[screened] for g in got[1:-1]]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["screen_with_worlds", "narrow_planar", "no_boxes",
+                                 "thresh_not_dividing", "screen_without_thresh"])
+def test_sdf_lookup_kernel_rejects_bad_variants(cuda_device, bad):
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+
+    dim = 2 if bad == "narrow_planar" else 3
+    sdf, pts = _lookup_case(dim, 16 if bad == "screen_with_worlds" else 0, 100,
+                            torch.float32, cuda_device)
+    table = sdf.packed.reshape(-1, 2 ** dim)
+    boxes = torch.zeros(1, 2, 3, device=cuda_device)
+    thresh = torch.zeros(1, device=cuda_device)
+    kw, qpw = {"thresh": thresh, "boxes": boxes}, 0
+    if bad == "screen_with_worlds":
+        qpw = 100
+    elif bad == "narrow_planar":
+        table, kw = table.half(), {}
+    elif bad == "no_boxes":
+        kw["boxes"] = boxes[:0]
+    elif bad == "thresh_not_dividing":
+        kw["thresh"] = torch.zeros(3, device=cuda_device)
+    else:
+        del kw["thresh"]
+    with pytest.raises(ValueError):
+        sdf_lookup_cuda(pts, table, sdf.origin, sdf.cell_size, sdf.grid, qpw, **kw)
 
 
 @pytest.mark.cuda
