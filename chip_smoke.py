@@ -150,7 +150,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    unscreened run lane for lane (final errors within rel 1e-6, the same
    converged flags; the count of bit-unequal lanes printed); and
    PointRobot2D and Arm3Limits2D at the suite's throughput batches with
-   the corner-major table, equal to the row-major runs in every lane.
+   the corner-major table, equal to the row-major runs in every lane;
+16. the measuring entry points: bench_torch.py --config all spawned as its
+   own script (the twins of bench.py, bench_suite.py, bench_replan.py and
+   bench_longhorizon.py, built from this file's helpers): its rows by mode
+   (1 main, 5 suite, 1 replan, 8 long-horizon), each with the card's line
+   and the launches of its path's kernels in its last timed repeat, the
+   main row's converged fraction and mean iterations equal to phase 6's
+   and the suite rows' q512 fractions equal to phase 8's, vs_baseline set
+   exactly when BASELINE_MEASURED_H100_HOST.json exists; then
+   tools/oracle/suite_dump_torch.py into a temporary directory, each of
+   its five files of the size its header gives.
 
 Kernel times (K1, K2 and K3 at the main path's shapes, and at the
 fleet's and the WAM graph's) are device times (device_ms: median,
@@ -171,7 +181,8 @@ optimize's time, attempts and launches beside plan_batch's at B = 1), one
 per example of phase 13 (its card and CPU wall times, iterations, final
 errors and launches), one per long-horizon (n, solver) and one for the
 one-card ts planner and two for batch_fleet (phase 14), one per phase-15
-main-path option and corner-major suite row, a line of K1's and K2's
+main-path option and corner-major suite row, bench_torch.py's rows
+(phase 16, each as that script printed it), a line of K1's and K2's
 recorded times before their current designs (not measured in the run),
 the kernels' JSON line (`ms` the device time and `call_rate_ms` beside
 it; K1's entry with its m = 36 and m = 12 times and the Pose3 chain's
@@ -188,6 +199,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -213,6 +225,22 @@ K3_REPEATS = 5
 
 def log(*args):
     print(*args, flush=True)
+
+
+def sync():
+    """Wait for the card's queued work; a run that never touched CUDA (the
+    plain versions on the CPU) has none."""
+    import torch
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def nvidia_smi_card():
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
 
 
 def gpu_clocks():
@@ -791,45 +819,63 @@ def _grid_sample_ms(sdf, pts):
     return cuda_ms(lambda: F.grid_sample(vol, g, mode="bilinear", align_corners=True), 20)
 
 
-def main_path_inputs(dev):
-    """The main path's robot, SDF, setting, optimizer parameters, and B_MAIN
-    start and goal configurations (float32 on `dev`)."""
+def wam_desk_sdf(dev):
+    """The WAMDeskDataset 300^3 SDF in float32 on `dev` (unpacked)."""
     import torch
     from gpmp2_tpu_torch.datasets import generate_3d_dataset, sdf_from_occupancy
-    from gpmp2_tpu_torch.obstacle.factors import obstacle_factor_error
-    from gpmp2_tpu_torch.planner import TrajOptimizerSetting
-    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
-    from gpmp2_tpu_torch.robots import generate_arm
 
-    f32 = torch.float32
-    robot = generate_arm("WAMArm", dtype=f32, device=dev)
     ds = generate_3d_dataset("WAMDeskDataset")
     t0 = time.perf_counter()
-    sdf = sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=f32, device=dev)
+    sdf = sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=torch.float32, device=dev)
     log(f"SDF {tuple(sdf.data.shape)} {sdf.data.dtype} on {sdf.data.device}, "
         f"{sdf.data.numel() * sdf.data.element_size() / 1e6:.1f} MB, "
         f"built in {time.perf_counter() - t0:.1f} s")
-    setting = TrajOptimizerSetting(
-        dof=7, total_step=10, total_time=2.0, epsilon=0.2, cost_sigma=0.02,
-        obs_check_inter=9, opt_type="lm", max_iter=50, rel_thresh=1e-2,
-        Qc=np.eye(7))
-    params = optimizer_params_from_setting(setting)
+    return sdf
 
-    # bench.py's endpoints: perturbations of WAMPlannerExample.m's start and
-    # goal, rejection-sampled so that every pinned endpoint is collision-free
-    rng = np.random.default_rng(0)
+
+def main_path_endpoints(robot, sdf, B, seed=0):
+    """bench.py's endpoints: perturbations of WAMPlannerExample.m's start and
+    goal by 0.05 N(0, 1) (numpy `seed`), rejection-sampled in batches of 2 B
+    so that every pinned endpoint is collision-free; (starts, goals), (B, 7)
+    in the robot's dtype on the SDF's device."""
+    import torch
+    from gpmp2_tpu_torch.obstacle.factors import obstacle_factor_error
+
+    rng = np.random.default_rng(seed)
+    dtype, dev = sdf.data.dtype, sdf.data.device
 
     def sample_feasible(base, n):
         out = []
         while len(out) < n:
             cand = base + 0.05 * rng.normal(size=(2 * n, 7))
-            q = torch.as_tensor(cand, dtype=f32, device=dev)
+            q = torch.as_tensor(cand, dtype=dtype, device=dev)
             free = (obstacle_factor_error(robot, sdf, q, 0.0).sum(-1) < 1e-6).cpu().numpy()
             out.extend(cand[free][: n - len(out)])
         return np.stack(out)
 
-    starts = torch.as_tensor(sample_feasible(BASE_START, B_MAIN), dtype=f32, device=dev)
-    goals = torch.as_tensor(sample_feasible(BASE_GOAL, B_MAIN), dtype=f32, device=dev)
+    starts = torch.as_tensor(sample_feasible(BASE_START, B), dtype=dtype, device=dev)
+    goals = torch.as_tensor(sample_feasible(BASE_GOAL, B), dtype=dtype, device=dev)
+    return starts, goals
+
+
+def main_path_inputs(dev, B=None, seed=0, sdf=None):
+    """The main path's robot, SDF (`sdf`, else wam_desk_sdf), setting,
+    optimizer parameters, and B (default B_MAIN) start and goal
+    configurations (main_path_endpoints from numpy `seed`; float32 on
+    `dev`)."""
+    import torch
+    from gpmp2_tpu_torch.planner import TrajOptimizerSetting
+    from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
+    from gpmp2_tpu_torch.robots import generate_arm
+
+    robot = generate_arm("WAMArm", dtype=torch.float32, device=dev)
+    sdf = wam_desk_sdf(dev) if sdf is None else sdf
+    setting = TrajOptimizerSetting(
+        dof=7, total_step=10, total_time=2.0, epsilon=0.2, cost_sigma=0.02,
+        obs_check_inter=9, opt_type="lm", max_iter=50, rel_thresh=1e-2,
+        Qc=np.eye(7))
+    params = optimizer_params_from_setting(setting)
+    starts, goals = main_path_endpoints(robot, sdf, B_MAIN if B is None else B, seed)
     return robot, sdf, setting, params, starts, goals
 
 
@@ -870,13 +916,18 @@ def read_launches():
             "sdf_lookup": sdf_lookup_cuda.launches}
 
 
-def path_solver(inputs, params):
+def path_solver(inputs, params, fetch=False):
     """solve(b): the first b main-path problems built through the entry
     points (on the SDF packed once), planned from the straight line with
-    `params`, and their collision costs, ending in a synchronize."""
+    `params`, and their collision costs, ending in a synchronize; with
+    `fetch`, ending instead in a host copy of what a caller uses (the
+    trajectory, error, iterations, converged and gave_up, the collision
+    costs), which it returns."""
     import torch
     from gpmp2_tpu_torch.planner import (collision_cost, init_traj_straight_line,
                                          make_problem, plan_batch)
+    from gpmp2_tpu_torch.planner.problem import Trajectory
+    from gpmp2_tpu_torch.solver.optimize import OptResult
 
     robot, sdf, setting, _, starts, goals = inputs
     zeros = torch.zeros_like(starts)
@@ -894,27 +945,55 @@ def path_solver(inputs, params):
                                        setting.total_step, setting.total_time)
         res = plan_batch(probs, init, params)
         cc = collision_cost(probs, res.traj.pose)
-        torch.cuda.synchronize()
+        if fetch:
+            return OptResult(Trajectory(res.traj.pose.cpu(), res.traj.vel.cpu()),
+                             *(t.cpu() for t in res[1:])), cc.cpu()
+        sync()
         return res, cc
     solve.sdf = packed
+    solve.device = starts.device
     return solve
 
 
-def timed_main_path(name, solve):
-    """The main path's protocol: a warm-up, then REPEATS timed solves of
-    B_MAIN problems, each of which must launch K1, K2 and K3. Returns the
-    best time, the last result, its collision costs and its launches."""
-    solve(B_MAIN)  # warm-up
-    best = float("inf")
-    for _ in range(REPEATS):
+class MainPathRun(NamedTuple):
+    times: list  # seconds of each timed solve
+    res: object  # the last solve's result
+    cc: object  # its collision costs
+    launches: dict  # its launches
+    warmup_s: float
+
+
+def timed_main_path(name, solve, B=None, repeats=None):
+    """The main path's protocol: a warm-up, then `repeats` (default
+    REPEATS) timed solves of B (default B_MAIN) problems, each of which
+    must launch K1, K2 and K3 on the card (on the CPU the wrappers run
+    their plain versions and count nothing)."""
+    B = B_MAIN if B is None else B
+    t0 = time.perf_counter()
+    solve(B)  # warm-up
+    warmup_s = time.perf_counter() - t0
+    times = []
+    for _ in range(REPEATS if repeats is None else repeats):
         reset_launches()
         t0 = time.perf_counter()
-        res, cc = solve(B_MAIN)
-        best = min(best, time.perf_counter() - t0)
+        res, cc = solve(B)
+        times.append(time.perf_counter() - t0)
         launches = read_launches()
-        if min(launches.values()) == 0:
+        if solve.device.type == "cuda" and min(launches.values()) == 0:
             raise AssertionError(f"a kernel was not launched by the {name}: {launches}")
-    return best, res, cc, launches
+    return MainPathRun(times, res, cc, launches, warmup_s)
+
+
+def warm_latency_ms(solve, b, repeats=None):
+    """A warm-up solve(b), then `repeats` (default REPEATS) timed ones: their
+    milliseconds."""
+    solve(b)
+    times = []
+    for _ in range(REPEATS if repeats is None else repeats):
+        t0 = time.perf_counter()
+        solve(b)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 def main_path_quality(name, res, cc):
@@ -933,29 +1012,28 @@ def main_path_quality(name, res, cc):
     return conv, free, converged_frac, collision_free_frac
 
 
-def main_path(dev, card, inputs):
+def main_path_result(name, res, cc, B):
+    """The main path's result checks: a finite trajectory of shape (B, 11, 7),
+    finite errors and collision costs, and main_path_quality's gates."""
     import torch
 
-    solve = path_solver(inputs, inputs[3])
-    t_solve, res, cc, launches = timed_main_path("main path", solve)
-    for name, t in (("pose", res.traj.pose), ("vel", res.traj.vel),
+    for part, t in (("pose", res.traj.pose), ("vel", res.traj.vel),
                     ("error", res.error), ("collision cost", cc)):
         if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"non-finite {name} in the main-path result")
-    if res.traj.pose.shape != (B_MAIN, 11, 7):
-        raise AssertionError(f"trajectory shape {tuple(res.traj.pose.shape)}")
-    conv, free, converged_frac, collision_free_frac = main_path_quality("main path", res, cc)
+            raise AssertionError(f"{name}: non-finite {part} in the result")
+    if res.traj.pose.shape != (B, 11, 7):
+        raise AssertionError(f"{name}: trajectory shape {tuple(res.traj.pose.shape)}")
+    return main_path_quality(name, res, cc)
+
+
+def main_path(dev, card, inputs):
+    """Phase 6; returns its JSON line's metrics."""
+    solve = path_solver(inputs, inputs[3])
+    run = timed_main_path("main path", solve)
+    t_solve, res = min(run.times), run.res
+    conv, free, converged_frac, collision_free_frac = main_path_result("main path", res,
+                                                                       run.cc, B_MAIN)
     gave = res.gave_up.cpu().numpy()
-
-    def warm_latency_ms(b):
-        solve(b)
-        best = float("inf")
-        for _ in range(REPEATS):
-            t0 = time.perf_counter()
-            solve(b)
-            best = min(best, time.perf_counter() - t0)
-        return best * 1e3
-
     metrics = {
         "metric": "wam7_lm_main_path", "batch": B_MAIN,
         "converged_frac": converged_frac,
@@ -964,13 +1042,13 @@ def main_path(dev, card, inputs):
         "mean_iters": float(res.iterations.float().mean()),
         "solve_time_s": t_solve,
         "plans_per_s": float((conv & free).sum()) / t_solve,
-        "latency_b1_ms": warm_latency_ms(1),
-        "latency_b32_ms": warm_latency_ms(32),
-        "launches": launches,
+        "latency_b1_ms": min(warm_latency_ms(solve, 1)),
+        "latency_b32_ms": min(warm_latency_ms(solve, 32)),
+        "launches": run.launches,
         "card": card,
     }
     log(json.dumps(metrics))
-    return launches
+    return metrics
 
 
 def _card_vs_cpu(dev, name, build, params):
@@ -1064,11 +1142,12 @@ def draw_mobile(r, n):
     return s, g
 
 
-def suite_configs(dev, wam_sdf):
+def suite_configs(dev, wam_sdf, batch=None, seed_t=1):
     """bench_suite.py's configurations and draws, in its order: for each
     config, (name, robot, setting, (q512 sdf, starts, goals), (throughput
     sdf, starts, goals), make_problem keywords). numpy seed 0 draws the
-    oracle's 512-problem sets, seed 1 the throughput batches."""
+    oracle's 512-problem sets, seed `seed_t` the throughput batches; `batch`
+    (default SUITE_BATCH) holds the sizes, keyed as SUITE_BATCH."""
     import torch
     from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
     from gpmp2_tpu_torch.kinematics.fk import PointRobotFK
@@ -1079,8 +1158,9 @@ def suite_configs(dev, wam_sdf):
 
     f32 = torch.float32
     t = lambda x: torch.as_tensor(np.asarray(x), dtype=f32, device=dev)  # noqa: E731
-    rng, rng_t = np.random.default_rng(0), np.random.default_rng(1)
-    Bq = SUITE_BATCH["q512"]
+    rng, rng_t = np.random.default_rng(0), np.random.default_rng(seed_t)
+    sizes = SUITE_BATCH if batch is None else batch
+    Bq = sizes["q512"]
     out = []
 
     ds = generate_2d_dataset("OneObstacleDataset")
@@ -1095,13 +1175,13 @@ def suite_configs(dev, wam_sdf):
         g = np.stack([r.uniform(1.4, 1.8, n), r.uniform(1.2, 1.8, n)], -1)
         return t(s), t(g)
     out.append(("PointRobot2D", robot, setting, (sdf2, *draw_pr(rng, Bq)),
-                (sdf2, *draw_pr(rng_t, SUITE_BATCH["PointRobot2D"])), {}))
+                (sdf2, *draw_pr(rng_t, sizes["PointRobot2D"])), {}))
 
     dsm = generate_2d_dataset("MobileMap1")
     sdfm = planar_sdf_from_occupancy(dsm.origin, dsm.cell_size, dsm.map, device=dev)
     out.append(("MobileBaseSE2", generate_mobile_base(device=dev), mobile_setting(),
                 (sdfm, *map(t, draw_mobile(rng, Bq))),
-                (sdfm, *map(t, draw_mobile(rng_t, SUITE_BATCH["MobileBaseSE2"]))),
+                (sdfm, *map(t, draw_mobile(rng_t, sizes["MobileBaseSE2"]))),
                 MOBILE_KW))
 
     arm3 = generate_arm("SimpleThreeLinksArm", device=dev)
@@ -1117,7 +1197,7 @@ def suite_configs(dev, wam_sdf):
         g = np.array([np.pi / 2, 0, 0]) + 0.2 * r.normal(size=(n, 3))
         return t(s), t(g)
     out.append(("Arm3Limits2D", arm3, setting_a, (sdf2, *draw_a3(rng, Bq)),
-                (sdf2, *draw_a3(rng_t, SUITE_BATCH["Arm3Limits2D"])), {}))
+                (sdf2, *draw_a3(rng_t, sizes["Arm3Limits2D"])), {}))
 
     wam = generate_arm("WAMArm", device=dev)
     setting_w = TrajOptimizerSetting(
@@ -1128,7 +1208,7 @@ def suite_configs(dev, wam_sdf):
         return (t(BASE_START + 0.03 * r.normal(size=(n, 7))),
                 t(BASE_GOAL + 0.03 * r.normal(size=(n, 7))))
     out.append(("WAM7_3D", wam, setting_w, (wam_sdf, *draw_w(rng, Bq)),
-                (wam_sdf, *draw_w(rng_t, SUITE_BATCH["WAM7_3D"])), {}))
+                (wam_sdf, *draw_w(rng_t, sizes["WAM7_3D"])), {}))
 
     n = 64
     ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
@@ -1146,12 +1226,18 @@ def suite_configs(dev, wam_sdf):
         g = np.stack([np.full(nn, 0.9), r.uniform(-0.3, 0.3, nn)], -1)
         return sdf, t(s), t(g)
     out.append(("MultiWorld2D", pr, setting_mw, draw_mw(rng, Bq),
-                draw_mw(rng_t, SUITE_BATCH["MultiWorld2D"]), {}))
+                draw_mw(rng_t, sizes["MultiWorld2D"]), {}))
     return out
 
 
-def suite(dev, card, wam_sdf):
-    """The bench_suite.py paths, each config's line and gates."""
+def suite_measure(robot, setting, qset, tset, kwargs, repeats=None):
+    """bench_suite.py's protocol for one config of suite_configs: the q512
+    set solved once with the float64 rescue on; then the throughput set
+    once as a warm-up and `repeats` (default REPEATS) timed times, rescue
+    off, each timed to a host copy of its converged (and not given up),
+    gave_up and collision-free masks and mean iterations. Returns a dict:
+    `q512` (converged, collision-free), `warmup_s`, `times` (seconds),
+    `last` (the last solve's four columns) and `launches` (its launches)."""
     import dataclasses
 
     import torch
@@ -1159,39 +1245,77 @@ def suite(dev, card, wam_sdf):
                                          make_problem, plan_batch)
     from gpmp2_tpu_torch.planner.batch import optimizer_params_from_setting
 
+    params = optimizer_params_from_setting(setting)
+
+    def prepare(sdf, s, g):
+        z = torch.zeros_like(s)
+        probs = make_problem(robot, sdf, s, z, g, z, setting, **kwargs)
+        init = init_traj_straight_line(probs.space, s, g, setting.total_step,
+                                       setting.total_time)
+        return probs, init
+
+    def run(probs, init, p):
+        t0 = time.perf_counter()
+        res = plan_batch(probs, init, p)
+        cc = collision_cost(probs, res.traj.pose)
+        conv = (res.converged & ~res.gave_up).cpu().numpy()
+        out = (conv, res.gave_up.cpu().numpy(), (cc < 1e-4).cpu().numpy(),
+               res.iterations.float().mean().item())
+        return time.perf_counter() - t0, out
+
+    probs_q, init_q = prepare(*qset)
+    _, (conv_q, _, free_q, _) = run(probs_q, init_q,
+                                    dataclasses.replace(params, rescue_f64=True))
+    probs_t, init_t = prepare(*tset)
+    warmup_s, _ = run(probs_t, init_t, params)
+    times = []
+    for _ in range(REPEATS if repeats is None else repeats):
+        reset_launches()
+        t_run, last = run(probs_t, init_t, params)
+        times.append(t_run)
+        launches = read_launches()
+    return {"q512": (conv_q, free_q), "warmup_s": warmup_s, "times": times, "last": last,
+            "launches": launches}
+
+
+def suite_gates(name, row, on_card=True):
+    """A suite row's gates: K1 and K3 launched (K2 too in the arm configs)
+    where it ran on the card; where the row holds the oracle's fractions
+    (its q512 set is the oracle's), its q512 converged fraction not below
+    the oracle's and its q512 collision-free fraction within 0.02 of it."""
+    launches = row["launches"]
+    need = ["btsolve", "sdf_lookup"] + (["fk_arm"] if name in ("Arm3Limits2D", "WAM7_3D")
+                                        else [])
+    if on_card and any(launches[k] == 0 for k in need):
+        raise AssertionError(f"{name}: a kernel of its path was not launched: {launches}")
+    if row["oracle_q512_converged_frac"] is None:
+        return
+    if row["q512_converged_frac"] < row["oracle_q512_converged_frac"]:
+        raise AssertionError(f"{name}: q512 converged {row['q512_converged_frac']} < "
+                             f"the oracle's {row['oracle_q512_converged_frac']}")
+    if abs(row["q512_collision_free_frac"] - row["oracle_q512_collision_free_frac"]) > 0.02:
+        raise AssertionError(f"{name}: q512 collision-free "
+                             f"{row['q512_collision_free_frac']} not within 0.02 of "
+                             f"the oracle's {row['oracle_q512_collision_free_frac']}")
+
+
+def oracle_suite_quality():
+    """BASELINE_MEASURED_SUITE.json's configs: the oracle's results on the
+    512-problem sets (its quality columns do not depend on the host)."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "BASELINE_MEASURED_SUITE.json")) as fh:
-        oracles = json.load(fh)["configs"]
+        return json.load(fh)["configs"]
+
+
+def suite(dev, card, wam_sdf):
+    """The bench_suite.py paths, each config's line and gates; returns the
+    lines by config."""
+    oracles = oracle_suite_quality()
+    rows = {}
     for name, robot, setting, qset, tset, kwargs in suite_configs(dev, wam_sdf):
-        params = optimizer_params_from_setting(setting)
-
-        def prepare(sdf, s, g):
-            z = torch.zeros_like(s)
-            probs = make_problem(robot, sdf, s, z, g, z, setting, **kwargs)
-            init = init_traj_straight_line(probs.space, s, g, setting.total_step,
-                                           setting.total_time)
-            return probs, init
-
-        def run(probs, init, p):
-            t0 = time.perf_counter()
-            res = plan_batch(probs, init, p)
-            cc = collision_cost(probs, res.traj.pose)
-            conv = (res.converged & ~res.gave_up).cpu().numpy()
-            out = (conv, res.gave_up.cpu().numpy(), (cc < 1e-4).cpu().numpy(),
-                   res.iterations.float().mean().item())
-            return time.perf_counter() - t0, out
-
-        probs_q, init_q = prepare(*qset)
-        _, (conv_q, _, free_q, _) = run(probs_q, init_q,
-                                        dataclasses.replace(params, rescue_f64=True))
-        probs_t, init_t = prepare(*tset)
-        run(probs_t, init_t, params)  # warm-up
-        best = float("inf")
-        for _ in range(REPEATS):
-            reset_launches()
-            t_run, (conv, gave, free, iters) = run(probs_t, init_t, params)
-            best = min(best, t_run)
-            launches = read_launches()
+        m = suite_measure(robot, setting, qset, tset, kwargs)
+        (conv_q, free_q), (conv, gave, free, iters) = m["q512"], m["last"]
+        best = min(m["times"])
         oracle = oracles[name]
         row = {
             "config": name, "batch": int(conv.shape[0]),
@@ -1202,20 +1326,12 @@ def suite(dev, card, wam_sdf):
             "q512_collision_free_frac": float(free_q.mean()), "q512_rescue_f64": True,
             "oracle_q512_converged_frac": oracle["converged"] / 512,
             "oracle_q512_collision_free_frac": oracle["collision_free"] / 512,
-            "launches": launches, "card": card,
+            "launches": m["launches"], "card": card,
         }
         log(json.dumps(row))
-        need = ["btsolve", "sdf_lookup"] + (["fk_arm"] if name in ("Arm3Limits2D", "WAM7_3D")
-                                            else [])
-        if any(launches[k] == 0 for k in need):
-            raise AssertionError(f"{name}: a kernel of its path was not launched: {launches}")
-        if row["q512_converged_frac"] < row["oracle_q512_converged_frac"]:
-            raise AssertionError(f"{name}: q512 converged {row['q512_converged_frac']} < "
-                                 f"the oracle's {row['oracle_q512_converged_frac']}")
-        if abs(row["q512_collision_free_frac"] - row["oracle_q512_collision_free_frac"]) > 0.02:
-            raise AssertionError(f"{name}: q512 collision-free "
-                                 f"{row['q512_collision_free_frac']} not within 0.02 of "
-                                 f"the oracle's {row['oracle_q512_collision_free_frac']}")
+        suite_gates(name, row)
+        rows[name] = row
+    return rows
 
 
 def dogleg_phase(card, inputs):
@@ -1749,10 +1865,11 @@ def check_fleet_kernels(dev, fleet):
         f"({b2[1]}), K3 {b3[0]:.6f} ms ({b3[1]}; {b3[2]} distinct rows)")
 
 
-def wam_fleet_sessions(dev, inputs):
-    """bench_replan.py's fleet: B_FLEET WAM sessions, starts and goals the
-    base configurations plus 0.05 N(0, 1) (numpy seed 0), float32 on the
-    main path's field, packed once, seeded with the straight line. Returns
+def wam_fleet_sessions(dev, inputs, B=None, seed=0):
+    """bench_replan.py's fleet: B (default B_FLEET) WAM sessions, starts and
+    goals the base configurations plus 0.05 N(0, 1) (numpy `seed`), float32
+    on the main path's field (inputs[1]; inputs[0] the robot), packed once,
+    seeded with the straight line. Returns
     (fleet, one_round): one_round(r) pins state k = 1 + r mod 3 at the
     estimate, fuses a noisy state estimate (0.01 N(0, 1), covariance 1e-4)
     at state k + 1 when r is even, moves every goal by 0.02 N(0, 1), runs
@@ -1763,8 +1880,8 @@ def wam_fleet_sessions(dev, inputs):
 
     robot, sdf = inputs[0], inputs[1]
     setting = wam_fleet_setting()
-    f32, B = torch.float32, B_FLEET
-    rng = np.random.default_rng(0)
+    f32, B = torch.float32, B_FLEET if B is None else B
+    rng = np.random.default_rng(seed)
     starts = torch.as_tensor(BASE_START + 0.05 * rng.normal(size=(B, 7)), dtype=f32, device=dev)
     goals = torch.as_tensor(BASE_GOAL + 0.05 * rng.normal(size=(B, 7)), dtype=f32, device=dev)
     zeros = torch.zeros_like(starts)
@@ -1792,10 +1909,33 @@ def wam_fleet_sessions(dev, inputs):
                                               device=dev)
         fleet.change_goal_config_and_vel(goal_now, zeros)
         out = fleet.update()
-        torch.cuda.synchronize()
+        sync()
         return out, k, pin
 
     return fleet, one_round
+
+
+def fleet_rounds(one_round, rounds):
+    """Rounds 1 to `rounds` of wam_fleet_sessions' one_round, each timed and
+    counted alone. Gates: every final trajectory is finite and, on the card,
+    K1, K2 and K3 launch in every round. Returns (the last round's result,
+    k, pinned poses, each round's seconds, each round's launches)."""
+    import torch
+
+    times, launches = [], []
+    for r in range(1, rounds + 1):
+        reset_launches()
+        t0 = time.perf_counter()
+        out, k, pin = one_round(r)
+        times.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+    for name, x in (("pose", out.traj.pose), ("vel", out.traj.vel), ("error", out.error)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"WAM fleet: non-finite final {name}")
+    if out.error.is_cuda and min(min(n.values()) for n in launches) == 0:
+        raise AssertionError(f"WAM fleet: a kernel was not launched in a timed round: "
+                             f"{launches}")
+    return out, k, pin, times, launches
 
 
 def wam_fleet(dev, card, inputs):
@@ -1813,18 +1953,9 @@ def wam_fleet(dev, card, inputs):
     cold_s = time.perf_counter() - t0
     one_round(0)
     check_fleet_kernels(dev, fleet)
-    reset_launches()
-    t0 = time.perf_counter()
-    for r in range(1, FLEET_ROUNDS + 1):
-        out, k, pin = one_round(r)
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    for name, x in (("pose", out.traj.pose), ("vel", out.traj.vel), ("error", out.error)):
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"WAM fleet: non-finite final {name}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"WAM fleet: a kernel was not launched in the timed rounds: "
-                             f"{launches}")
+    out, k, pin, times, per_round = fleet_rounds(one_round, FLEET_ROUNDS)
+    wall = sum(times)
+    launches = {name: sum(n[name] for n in per_round) for name in per_round[0]}
     row = {
         "metric": "wam7_replan_fleet", "batch": B, "rounds": FLEET_ROUNDS,
         "warm_iter": FLEET_WARM_ITER,
@@ -2398,12 +2529,13 @@ FLEET_EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "exampl
                              "batch_fleet.py")
 
 
-def lh_system(rng, n, dev):
-    """bench_longhorizon.py's make_system: D_i = A A^T / m + (m + 2) I,
-    U_i = 0.3 N(0, 1), b = N(0, 1), float32, drawn from `rng` in its order."""
+def lh_system(rng, n, dev, B=None):
+    """bench_longhorizon.py's make_system for B (default LH_B) lanes: D_i =
+    A A^T / m + (m + 2) I, U_i = 0.3 N(0, 1), b = N(0, 1), float32, drawn
+    from `rng` in its order."""
     import torch
 
-    B, m = LH_B, LH_M
+    B, m = LH_B if B is None else B, LH_M
     A = rng.normal(size=(B, n, m, m)).astype(np.float32)
     D = A @ np.swapaxes(A, -1, -2) / m + (m + 2) * np.eye(m, dtype=np.float32)
     U = 0.3 * rng.normal(size=(B, n - 1, m, m)).astype(np.float32)
@@ -2420,20 +2552,25 @@ def lh_residual(D, U, b, x):
     return float((r / b.flatten(1).norm(dim=1)).max())
 
 
+def timed_calls(fn, repeats=3):
+    """A warm-up call of fn, then `repeats` timed calls, each ended by a
+    sync: (the last call's result, each timed call's host ms)."""
+    fn()
+    sync()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
 def best_of_3(fn):
     """fn's result and its best host time of 3 after a warm-up, in ms, each
     ended by a synchronize."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    return out, best * 1e3
+    out, times = timed_calls(fn)
+    return out, min(times)
 
 
 def _check_k1(name, D, U, b, jacobi, lam, tol):
@@ -2520,39 +2657,59 @@ def check_phase14_kernels(dev, fleet):
                  probs.sdf.packed is not None)
 
 
-def long_horizon(dev, card):
-    """bench_longhorizon.py's protocol on the card: at each n, K1 and the
+def lh_rows(dev, card, B=None, seed=0, repeats=3):
+    """bench_longhorizon.py's protocol: at each n of LH_NS, on B
+    (default LH_B) lh_system systems drawn from numpy `seed`, K1 and the
     partitioned solve (P = max(2, min(64, n // 64))) on the same systems,
-    best of 3 after a warm-up on the host clock, the device time between
-    two events around a solve (device_ms), the worst lane's relative
-    residual; one JSON line per (n, solver). K1 must launch
-    in both (the partitioned solve's separator system is K1). Then both in
-    float64 at n = 257 must agree within rel 1e-10. Writes no file."""
+    `repeats` host-timed solves after a warm-up, the device time between
+    two events around a solve (device_ms; on the card only), the worst
+    lane's relative residual (below 1e-4). K1 must launch in every solve on
+    the card (the partitioned solve's separator system is K1). Yields
+    (JSON line, K1 launches over the warm-up and the timed solves)."""
     import torch
     from gpmp2_tpu_torch.ops.btsolve import batched_block_tridiag_solve
     from gpmp2_tpu_torch.solver.partitioned import block_tridiag_solve_partitioned
 
-    rng = np.random.default_rng(0)
-    k1_launches = {}
+    rng = np.random.default_rng(seed)
+    on_card = dev.type == "cuda"
     for n in LH_NS:
-        D, U, b = lh_system(rng, n, dev)
+        D, U, b = lh_system(rng, n, dev, B)
         P = max(2, min(64, n // 64))
         solvers = (("K1", lambda: batched_block_tridiag_solve(D, U, b)),
                    (f"partitioned(P={P})",
                     lambda: block_tridiag_solve_partitioned(D, U, b, P)))
         for name, solve in solvers:
-            reset_launches()
-            x, ms = best_of_3(solve)
-            launches = k1_launches[f"n={n} {name}"] = read_launches()["btsolve"]
-            if launches == 0:
+            counts = []
+
+            def counted():
+                reset_launches()
+                x = solve()
+                counts.append(read_launches()["btsolve"])
+                return x
+            x, times = timed_calls(counted, repeats)
+            if on_card and min(counts) == 0:
                 raise AssertionError(f"long horizon n={n} {name}: K1 was not launched")
             res = lh_residual(D, U, b, x)
             if not (bool(torch.isfinite(x).all()) and res < 1e-4):
                 raise AssertionError(f"long horizon n={n} {name}: residual {res}")
-            row = {"metric": "long_horizon", "n": n, "m": LH_M, "B": LH_B, "solver": name,
-                   "ms": ms, "device_ms": device_ms(solve, reps=5)[0],
-                   "rel_residual": res, "k1_launches_per_solve": launches / 4, "card": card}
-            log(json.dumps(row))
+            yield {"metric": "long_horizon", "n": n, "m": LH_M, "B": b.shape[0],
+                   "solver": name, "ms": min(times), "median_ms": float(np.median(times)),
+                   "times_ms": times,
+                   "device_ms": device_ms(solve, reps=5)[0] if on_card else None,
+                   "rel_residual": res, "k1_launches_per_solve": counts[-1],
+                   "card": card}, sum(counts)
+
+
+def long_horizon(dev, card):
+    """lh_rows on the card, one JSON line per (n, solver); then both solvers
+    in float64 at n = 257 must agree within rel 1e-10. Writes no file."""
+    from gpmp2_tpu_torch.ops.btsolve import batched_block_tridiag_solve
+    from gpmp2_tpu_torch.solver.partitioned import block_tridiag_solve_partitioned
+
+    k1_launches = {}
+    for row, launches in lh_rows(dev, card):
+        k1_launches[f"n={row['n']} {row['solver']}"] = launches
+        log(json.dumps(row))
     rng = np.random.default_rng(1)
     D, U, b = (t.double() for t in lh_system(rng, 257, dev))
     x_k1 = batched_block_tridiag_solve(D, U, b)
@@ -2865,7 +3022,7 @@ def variant_main_paths(dev, card, inputs):
 
     robot, sdf, setting, params, starts, goals = inputs
     want_dtype = {"pack_f16": torch.float16}
-    _, res0, _, _ = timed_main_path("main path", path_solver(inputs, params))
+    res0 = timed_main_path("main path", path_solver(inputs, params)).res
     screens = _screens(dev, sdf)
     out = {}
     for name, pack_dtype, screen in VARIANT_PATHS:
@@ -2874,7 +3031,8 @@ def variant_main_paths(dev, card, inputs):
             solve = path_solver((robot, field, setting, params, starts, goals), params)
             if solve.sdf.packed.dtype != want_dtype.get(name, torch.float32):
                 raise AssertionError(f"{name}: packed as {solve.sdf.packed.dtype}")
-            best, res, cc, launches = timed_main_path(f"main path ({name})", solve)
+            times, res, cc, launches, _ = timed_main_path(f"main path ({name})", solve)
+            best = min(times)
         conv, free, conv_frac, free_frac = main_path_quality(name, res, cc)
         row = {"metric": f"wam7_lm_main_path_{name}", "batch": B_MAIN,
                "converged_frac": conv_frac, "collision_free_frac": free_frac,
@@ -2952,6 +3110,99 @@ def sdf_variants_phase(dev, card, inputs, wam_pts, default_ms):
     return variants, again_ms
 
 
+# ---- phase 16: the measuring entry points ----------------------------------------
+
+BENCH_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_torch.py")
+SUITE_DUMP_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                 "oracle", "suite_dump_torch.py")
+# bench_torch.py --config all's rows by mode
+BENCH_ROWS = {"main": 1, "suite": 5, "replan": 1, "longhorizon": 2 * len(LH_NS)}
+
+
+def bench_row_kernels(row):
+    """The kernels a bench_torch.py row's path launches."""
+    if row["mode"] == "longhorizon":
+        return ("btsolve",)
+    if row["mode"] == "suite" and row["config"] not in ("Arm3Limits2D", "WAM7_3D"):
+        return ("btsolve", "sdf_lookup")
+    return ("btsolve", "fk_arm", "sdf_lookup")
+
+
+def bench_phase(card, main_metrics, suite_rows):
+    """Phase 16: bench_torch.py --config all as its own script: every row
+    with the card's line and the launches of its path's kernels, the main
+    row's converged fraction and mean iterations equal to phase 6's and the
+    suite rows' q512 fractions equal to phase 8's (the same draws through
+    the same code); vs_baseline set where BASELINE_MEASURED_H100_HOST.json
+    exists. Then tools/oracle/suite_dump_torch.py into a temporary
+    directory, each file of the size its header gives."""
+    import runpy
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, BENCH_SCRIPT, "--config", "all"],
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        log(out.stdout[-3000:], out.stderr[-3000:])
+        raise AssertionError(f"bench_torch.py --config all exited {out.returncode}")
+    rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    for row in rows:
+        log(json.dumps(row))
+    counts = {mode: sum(r["mode"] == mode for r in rows) for mode in BENCH_ROWS}
+    if counts != BENCH_ROWS:
+        raise AssertionError(f"bench_torch.py: rows by mode {counts}, not {BENCH_ROWS}")
+    for row in rows:
+        name = row.get("metric", row.get("config"))
+        if row["card"] != card:
+            raise AssertionError(f"bench_torch.py {name}: card {row['card']!r}, not {card!r}")
+        if any(row["launches"][k] == 0 for k in bench_row_kernels(row)):
+            raise AssertionError(f"bench_torch.py {name}: a kernel of its path was not "
+                                 f"launched: {row['launches']}")
+    main_row = next(r for r in rows if r["mode"] == "main")
+    for key in ("converged_frac", "mean_iters"):
+        if main_row[key] != main_metrics[key]:
+            raise AssertionError(f"bench_torch.py main {key} {main_row[key]} against phase "
+                                 f"6's {main_metrics[key]}")
+    have_baseline = os.path.exists(os.path.join(os.path.dirname(BENCH_SCRIPT),
+                                                "BASELINE_MEASURED_H100_HOST.json"))
+    if have_baseline != (main_row["vs_baseline"] is not None):
+        raise AssertionError(f"bench_torch.py main vs_baseline {main_row['vs_baseline']} "
+                             f"with the host baseline file present: {have_baseline}")
+    suite_bench = [r for r in rows if r["mode"] == "suite"]
+    if [r["config"] for r in suite_bench] != list(suite_rows):
+        raise AssertionError(f"bench_torch.py suite configs {[r['config'] for r in suite_bench]}")
+    for r in suite_bench:
+        for key in ("q512_converged_frac", "q512_collision_free_frac"):
+            if r[key] != suite_rows[r["config"]][key]:
+                raise AssertionError(f"bench_torch.py {r['config']} {key} {r[key]} against "
+                                     f"phase 8's {suite_rows[r['config']][key]}")
+    log(f"bench_torch.py --config all: {len(rows)} rows in {wall:.1f} s, main and suite "
+        f"equal to phases 6 and 8")
+
+    expected_size = runpy.run_path(SUITE_DUMP_SCRIPT, run_name="suite_dump")["expected_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, SUITE_DUMP_SCRIPT, tmp], capture_output=True,
+                             text=True, timeout=300)
+        if out.returncode != 0:
+            log(out.stdout[-3000:], out.stderr[-3000:])
+            raise AssertionError(f"suite_dump_torch.py exited {out.returncode}")
+        sizes = {}
+        for name in sorted(os.listdir(tmp)):
+            path = os.path.join(tmp, name)
+            sizes[name] = os.path.getsize(path)
+            if sizes[name] != expected_size(path, SUITE_BATCH["q512"]):
+                raise AssertionError(f"suite_dump_torch.py {name}: {sizes[name]} bytes, not "
+                                     f"{expected_size(path, SUITE_BATCH['q512'])}")
+    if len(sizes) != 5:
+        raise AssertionError(f"suite_dump_torch.py wrote {sorted(sizes)}")
+    log(f"suite_dump_torch.py in {time.perf_counter() - t0:.1f} s: {sizes}")
+
+
 def main():
     import torch
 
@@ -2968,10 +3219,7 @@ def main():
     t_start = time.perf_counter()
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    card = smi.strip()
+    card = nvidia_smi_card()
     log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)
@@ -2991,14 +3239,15 @@ def main():
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. main path
-    launches = main_path(dev, card, inputs)
+    main_metrics = main_path(dev, card, inputs)
+    launches = main_metrics["launches"]
 
     # 7. reference agreement on a small input
     reference_agreement(dev, inputs)
     log(f"main path done at {time.perf_counter() - t_start:.1f} s")
 
     # 8. the bench_suite paths
-    suite(dev, card, sdf)
+    suite_rows = suite(dev, card, sdf)
     log(f"suite done at {time.perf_counter() - t_start:.1f} s")
 
     # 9. Dogleg on the main path's problems
@@ -3035,6 +3284,12 @@ def main():
     k3["variants"], k3["ms_phase15"] = sdf_variants_phase(dev, card, inputs, wam_pts,
                                                           k3["ms"])
     log(f"SDF variants done at {time.perf_counter() - t_start:.1f} s")
+
+    # 16. the measuring entry points
+    t0 = time.perf_counter()
+    bench_phase(card, main_metrics, suite_rows)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s; measuring entry points done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         {"name": "btsolve", "route": "cuda", "source": "gpmp2_tpu_torch/csrc/btsolve.cu",

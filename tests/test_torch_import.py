@@ -38,8 +38,10 @@ def test_scripts_leave_jax_out():
     import glob
 
     scripts = sorted(glob.glob(os.path.join(REPO, "examples_torch", "*.py")))
-    scripts += [os.path.join(REPO, "chip_smoke.py"),
-                os.path.join(REPO, "tools", "profile_torch_main.py")]
+    scripts += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py"),
+                os.path.join(REPO, "tools", "profile_torch_main.py"),
+                os.path.join(REPO, "tools", "oracle", "suite_dump_torch.py"),
+                os.path.join(REPO, "tools", "oracle", "measure_host.py")]
     assert len(scripts) >= 9
     for path in scripts:
         bad = [m for m in _imported_modules(path)
