@@ -136,9 +136,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    coarse screen (factor 8), both with each sphere's eps_total as the
    threshold, against their plain versions at the main path's queries
    (check_lookup; the float64 comparison leaves out the queries that the
-   float32 and float64 bounds screen differently), the corner-major
-   planar table at PointRobot2D's queries on OneObstacle, at
-   MultiWorld2D's per-problem worlds and on the edges; each timed
+   float32 and float64 bounds screen differently), the screens' recorded
+   times before their persistent design on a line of their own, the
+   corner-major planar table at PointRobot2D's queries on OneObstacle,
+   at MultiWorld2D's per-problem worlds and on the edges; each timed
    (device_ms, L2 flushed) beside its own bound (16-B rows for the
    narrow ones, no row bytes for a screened query, the boxes or the
    coarse table read once), with its screened fraction, and the default
@@ -219,6 +220,10 @@ SUITE_BATCH = {"q512": 512, "PointRobot2D": 16384, "MobileBaseSE2": 4096,
 # kernel table records them (NVIDIA H100 80GB HBM3, 700.00 W); printed
 # for reference on a line of their own, never in the kernels' JSON line
 RECORDED_PREV_MS = {"btsolve": 0.691, "fk_arm": 2.205}
+# K3's hull and coarse screens at the main path's queries as one thread a
+# query, before their persistent design (PERF.md's kernel table: device
+# times, L2 flushed, two runs); printed on a line of their own in phase 15
+RECORDED_SCREEN_MS = {"hull": (0.0945, 0.0955), "coarse": (0.0631, 0.0633)}
 # K3's time at the main path's queries is the median of this many timings
 K3_REPEATS = 5
 
@@ -2962,6 +2967,9 @@ def check_variant_lookups(dev, wam_sdf, wam_pts, eps_total, default_ms):
               lambda: k3_bound(wam_pts, packed, read=~screened, once_bytes=once,
                                screen_flops=flops), screened=screened)
         del packed
+    log("K3 screens as one thread a query, before the persistent design (recorded, not "
+        "measured in this run): " + ", ".join(
+            f"{name} {lo}-{hi} ms" for name, (lo, hi) in RECORDED_SCREEN_MS.items()))
 
     wam_packed = pack_sdf(wam_sdf)
     again = device_ms(lambda: sdf_lookup_cuda(wam_pts, *_lookup_operands(wam_packed, True)),

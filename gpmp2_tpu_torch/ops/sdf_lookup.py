@@ -43,7 +43,9 @@ and a lower bound of the distance decides whether the query needs its row:
   clipped then truncated, screened where bound > thresh.
 A screened query returns dist = bound, a zero gradient and its in-range
 mask; the hinge is zero there either way. The kernel skips the screened
-query's row read.
+query's row read; on the card the screens run in a persistent kernel
+(csrc/sdf_lookup.cu, `sdf_screen_kernel`), whose grid the launcher sizes
+to the blocks that fit on the card at once.
 
 Returns (dist, gx, gy[, gz], ok), each (N,): distances and world-frame
 gradients in the input dtype, ok the in-range mask.

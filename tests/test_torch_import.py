@@ -40,6 +40,7 @@ def test_scripts_leave_jax_out():
     scripts = sorted(glob.glob(os.path.join(REPO, "examples_torch", "*.py")))
     scripts += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py"),
                 os.path.join(REPO, "tools", "profile_torch_main.py"),
+                os.path.join(REPO, "tools", "time_k3_screens.py"),
                 os.path.join(REPO, "tools", "oracle", "suite_dump_torch.py"),
                 os.path.join(REPO, "tools", "oracle", "measure_host.py")]
     assert len(scripts) >= 9

@@ -234,14 +234,16 @@ def test_sdf_lookup_kernel_matches_plain(cuda_device, dim, worlds, packed, dtype
     _hold_lookup(got, ref, dtype)
 
 
-def _hold_lookup(got, ref, dtype):
+def _hold_lookup(got, ref, dtype, nan_first=True):
     """K3's outputs against its plain version's on the same inputs: the
     same arithmetic in the same dtype, only FMA contraction differs, so a
-    few ulps of the field's scale; the masks equal, and the NaN x
-    coordinate of query 0 reaches dist (and the gradients that read fx)."""
+    few ulps of the field's scale; the masks equal, and (with `nan_first`)
+    the NaN x coordinate of query 0 reaches dist (and the gradients that
+    read fx)."""
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert torch.equal(got[-1], ref[-1])
-    assert torch.isnan(got[0][0]) and torch.isnan(ref[0][0])
+    if nan_first:
+        assert torch.isnan(got[0][0]) and torch.isnan(ref[0][0])
     for g, r in zip(got[:-1], ref[:-1]):
         fin = ~torch.isnan(r)
         assert torch.equal(~torch.isnan(g), fin)
@@ -357,6 +359,84 @@ def test_sdf_lookup_kernel_rejects_misaligned_table(cuda_device):
     rows.copy_(sdf.packed)
     with pytest.raises(ValueError, match="16-byte"):
         sdf_lookup_cuda(pts, rows, sdf.origin, sdf.cell_size, sdf.grid)
+
+
+# the persistent screen kernel's cases: (screen, table, dtype, N, S, boxes
+# or coarse factor, thresholds). N below one block, N = 7 * 150,001 (no
+# multiple of any persistent grid's threads), the main path's 3,309,568;
+# S 1, 7 and 16 dividing N; 1, 12 and 1024 boxes (1024 float64 boxes fill
+# the 48 KB of shared memory); thresholds that screen some, every or no
+# query; coarse tables of the (60, 70, 80) field at factor 2 (168 KB in
+# float32, 336 KB in float64) and 1 (1.3 MB in float32)
+SCREEN_CASES = [
+    ("hull", "packed", torch.float32, 100, 1, 12, "some"),
+    ("hull", "packed", torch.float32, 1_050_007, 7, 12, "some"),
+    ("hull", "packed", torch.float32, 3_309_568, 16, 12, "some"),
+    ("hull", "raw", torch.float64, 7_000, 7, 1, "some"),
+    ("hull", "packed", torch.float32, 16_000, 16, 1024, "some"),
+    ("hull", "raw", torch.float64, 16_000, 16, 1024, "some"),
+    ("hull", "packed", torch.float32, 7_000, 7, 12, "all"),
+    ("hull", "packed", torch.float32, 7_000, 7, 12, "none"),
+    ("coarse", "packed", torch.float32, 100, 1, 2, "some"),
+    ("coarse", "packed", torch.float32, 1_050_007, 7, 2, "some"),
+    ("coarse", "packed", torch.float32, 3_309_568, 16, 2, "some"),
+    ("coarse", "raw", torch.float64, 7_000, 7, 2, "some"),
+    ("coarse", "packed", torch.float64, 1_050_007, 7, 2, "some"),
+    ("coarse", "packed", torch.float32, 16_000, 16, 1, "some"),
+    ("coarse", "raw", torch.float32, 7_000, 7, 2, "all"),
+    ("coarse", "raw", torch.float64, 7_000, 7, 2, "none"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("screen,table,dtype,N,S,size,which", SCREEN_CASES)
+def test_sdf_screen_kernel_cases(cuda_device, screen, table, dtype, N, S, size, which):
+    """The persistent screen kernel against `screen_bound` and
+    `sdf_lookup_torch`: a query that `screen_bound` screens carries exactly
+    its bound and a zero gradient, every output lies within `_hold_lookup`'s
+    tolerance of the plain version's (NaN where it is NaN; an unscreened
+    query's interpolated distance is far from its bound, so a query screened
+    differently fails here), and the in-range masks are equal. The points
+    cover the grid and a margin outside it, with query 0's x NaN."""
+    from gpmp2_tpu_torch.obstacle.sdf import SignedDistanceField, pack_sdf, screen_sdf
+    from gpmp2_tpu_torch.ops.sdf_lookup import screen_bound, sdf_lookup_cuda, sdf_lookup_torch
+
+    rng = np.random.default_rng(N + S + size)
+    grid, cell = (60, 70, 80), 0.05
+    origin = np.array([-0.5, -1.0, 0.25])
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device)  # noqa: E731
+    raw = SignedDistanceField(f(origin), f(cell), f(rng.normal(size=grid)))
+    ext = np.array(grid[::-1]) * cell
+    pts = origin + rng.uniform(-0.1, 1.1, size=(N, 3)) * ext
+    pts[0, 0] = np.nan
+    pts = f(pts)
+    if screen == "hull":
+        # boxes inside the grid's span, or (every query screened) beyond it
+        far = 100.0 if which == "all" else 0.0
+        lo = origin + far + rng.uniform(0.0, 1.0, (size, 3)) * ext
+        boxes = np.stack([lo, lo + rng.uniform(0.0, 0.3, (size, 3))], axis=1)
+        kw, span = {"boxes": f(boxes)}, (-0.3, 0.3)
+    else:
+        s = screen_sdf(raw, size)
+        kw, span = {"coarse": s.coarse, "coarse_cell": s.coarse_cell}, (-2.5, -1.5)
+    if which == "some":
+        kw["thresh"] = f(rng.uniform(*span, S))
+    else:
+        kw["thresh"] = f(np.full(S, -1e9 if which == "all" else 1e9))
+    t = pack_sdf(raw).packed.reshape(-1, 8) if table == "packed" else raw.data.reshape(-1)
+    args = (t, raw.origin, raw.cell_size, raw.grid)
+    got = sdf_lookup_cuda(pts, *args, **kw)
+    ref = sdf_lookup_torch(pts, *args, **kw)
+    torch.cuda.synchronize()
+    bound, screened = screen_bound(pts, raw.origin, raw.cell_size, **kw)
+    # the NaN point's hull bound is NaN, which screens it under any threshold
+    finite = ~pts.isnan().any(1)
+    n, nf = int(screened[finite].sum()), int(finite.sum())
+    assert {"some": 0 < n < nf, "all": n == nf, "none": n == 0}[which]
+    assert torch.equal(got[0][screened].nan_to_num(), bound[screened].nan_to_num())
+    assert not bool(torch.cat([g[screened] for g in got[1:-1]]).any())
+    # query 0's dist need not be NaN: the coarse screen gives it a table value
+    _hold_lookup(got, ref, dtype, nan_first=False)
 
 
 @pytest.mark.cuda
