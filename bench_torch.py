@@ -63,7 +63,8 @@ Knobs (the JAX scripts' names): BENCH_BATCH (main 2048, replan 1024),
 BENCH_REPEATS (R, default 3; --repeats wins), BENCH_ROUNDS (8),
 SUITE_BATCH (the q512 sets, 512), SUITE_B_POINT, SUITE_B_MOBILE,
 SUITE_B_ARM3, SUITE_B_WAM, SUITE_B_MULTI (throughput batches), LH_BATCH
-(256). --seed replaces the seeds of the main endpoints, the suite's
+(256), LH_NS (the long-horizon n, comma-separated; 65,129,257,1025).
+--seed replaces the seeds of the main endpoints, the suite's
 throughput draws, the replanning fleet and the long-horizon systems; the
 q512 sets stay the oracle's. Without a CUDA device and without --cpu the
 script exits non-zero with the port's "no CUDA device" message; with --cpu
@@ -89,6 +90,12 @@ CONFIGS = ("main", "suite", "replan", "longhorizon")
 
 def env_int(name, default):
     return int(os.environ.get(name, str(default)))
+
+
+def env_ints(name, default):
+    """A comma-separated list of ints from the environment, else `default`."""
+    value = os.environ.get(name)
+    return default if value is None else tuple(int(v) for v in value.split(","))
 
 
 def host_baseline():
@@ -223,7 +230,8 @@ class Bench:
     def longhorizon(self):
         seed = self.seed_or(0)
         for row, _ in cs.lh_rows(self.dev, self.card, B=env_int("LH_BATCH", cs.LH_B),
-                                 seed=seed, repeats=self.repeats):
+                                 seed=seed, repeats=self.repeats,
+                                 ns=env_ints("LH_NS", cs.LH_NS)):
             launches = {"btsolve": row.pop("k1_launches_per_solve")}
             self.emit("longhorizon", {**row, "seed": seed, "launches": launches})
 

@@ -138,11 +138,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    (check_lookup; the float64 comparison leaves out the queries that the
    float32 and float64 bounds screen differently), the screens' recorded
    times before their persistent design on a line of their own, the
-   corner-major planar table at PointRobot2D's queries on OneObstacle,
-   at MultiWorld2D's per-problem worlds and on the edges; each timed
-   (device_ms, L2 flushed) beside its own bound (16-B rows for the
-   narrow ones, no row bytes for a screened query, the boxes or the
-   coarse table read once), with its screened fraction, and the default
+   corner-major planar table at PointRobot2D's queries on OneObstacle
+   (its interleaved route), at MultiWorld2D's per-problem worlds (its
+   direct route) and on the edges; each timed (device_ms, L2 flushed)
+   beside its own bound (16-B rows for the narrow ones, no row bytes for
+   a screened query, the boxes or the coarse table read once, a planar
+   row counted once a world), with its screened fraction, the row-major
+   planar default held to its plain version and timed beside it at both
+   planar shapes, with
+   F.grid_sample's bilinear distance (device_ms, L2 flushed) as the
+   yardstick of both, and the default
    instantiation timed again, which must lie within 3% of its phase-5
    time; then the main path (phase 6's inputs) once with
    GPMP2_TPU_PACK_DTYPE=float16, once with the hull screen and once with
@@ -287,15 +292,18 @@ def device_ms(fn, reps=20, flush=False):
     the pair; for a call of many kernels that the host enqueues more
     slowly than the card runs them, the pair spans the card's idle gaps
     too. With `flush`, a FLUSH_BYTES write before each call evicts the
-    L2."""
+    L2; with flush="read", a FLUSH_BYTES read (a sum), which evicts it
+    and leaves no dirty line for the call to write back."""
     import torch
 
-    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda") if flush else None
+    buf = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda") if flush else None
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        if buf is not None:
+        if flush == "read":
+            buf.sum()
+        elif buf is not None:
             buf.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -333,10 +341,11 @@ def k2_bound(N, d, S):
     return bound(4 * N * (d + S * 3 + S * 3 * d), N * (40 * d + S * (12 + 9 * d)))
 
 
-def k3_bound(pts, sdf, read=None, row_bytes=None, once_bytes=0, screen_flops=0):
-    """K3's bound for float32 queries pts (N, dim) on a packed field of one
-    shared world: the points read once, the distinct packed rows of the
-    queries that `read` (default all) touch read once, `row_bytes` each
+def k3_bound(pts, sdf, read=None, row_bytes=None, once_bytes=0, screen_flops=0, qpw=0):
+    """K3's bound for float32 queries pts (N, dim) on a packed field, query
+    i in world i // qpw (qpw 0: one shared world): the points read once,
+    the distinct packed rows (world and cell) of the queries that `read`
+    (default all) touch read once, `row_bytes` each
     (default 4 bytes a corner), the screen's operands (`once_bytes`) read
     once, the dim + 1 outputs and the mask written once; the
     interpolation's operations on the rows read (120 in 3D, 40 in 2D)
@@ -349,6 +358,8 @@ def k3_bound(pts, sdf, read=None, row_bytes=None, once_bytes=0, screen_flops=0):
     grid = sdf.grid
     lo = [c[:, k].floor().clamp(max=s - 2).long() for k, s in enumerate(grid[::-1])]
     base = lo[1] * grid[-1] + lo[0] + (lo[2] * grid[-1] * grid[-2] if dim == 3 else 0)
+    if qpw:
+        base = base + torch.arange(pts.shape[0], device=pts.device) // qpw * sdf.cells
     n_read = pts.shape[0] if read is None else int(read.sum())
     touched = int(torch.unique(base if read is None else base[read]).numel())
     N = pts.shape[0]
@@ -758,7 +769,8 @@ def check_sdf_lookup(dev, wam_sdf, wam_pts):
         f"({100 * bound_ms / warm[0]:.1f}%); plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}; {touched} distinct rows)")
     grid_sample_ms = _grid_sample_ms(wam_sdf, wam_pts)
-    log(f"K3 yardstick: F.grid_sample (distance only, no gradient) {grid_sample_ms:.4f} ms")
+    log(f"K3 yardstick: F.grid_sample (distance only, no gradient), call rate (CUDA events "
+        f"over 20 back-to-back calls, not a device time) {grid_sample_ms:.4f} ms")
     return {"max_abs_err": main_err, "ms": cold[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "ms_l2_warm": warm[0], "call_rate_ms": call_ms}
@@ -812,8 +824,9 @@ def check_lookup_edges(name, field, dev, packings):
 
 
 def _grid_sample_ms(sdf, pts):
-    """Time of F.grid_sample's trilinear distance (no gradient) at the same
-    queries: a yardstick only, no function of the port's."""
+    """Call rate (cuda_ms: CUDA events over 20 back-to-back calls) of
+    F.grid_sample's trilinear distance (no gradient) at the same queries:
+    a yardstick only, no function of the port's."""
     import torch
     import torch.nn.functional as F
 
@@ -822,6 +835,23 @@ def _grid_sample_ms(sdf, pts):
     g = (2 * (pts - sdf.origin) / sdf.cell_size / size - 1).reshape(1, 1, 1, -1, 3)
     vol = sdf.data[None, None]
     return cuda_ms(lambda: F.grid_sample(vol, g, mode="bilinear", align_corners=True), 20)
+
+
+def _grid_sample_2d_ms(sdf, pts, qpw=0):
+    """Device time (device_ms, L2 flushed: median, min, max) of
+    F.grid_sample's bilinear distance (no gradient) at planar queries
+    (N, >= 2), one image a world where qpw > 0: a yardstick only, no
+    function of the port's."""
+    import torch
+    import torch.nn.functional as F
+
+    rows, cols = sdf.grid
+    W = max(sdf.num_worlds, 1)
+    size = torch.tensor([cols - 1, rows - 1], dtype=pts.dtype, device=pts.device)
+    g = (2 * (pts[:, :2] - sdf.origin) / sdf.cell_size / size - 1).reshape(W, 1, -1, 2)
+    vol = sdf.data.reshape(W, 1, rows, cols)
+    return device_ms(lambda: F.grid_sample(vol, g, mode="bilinear", align_corners=True),
+                     flush=True)
 
 
 def wam_desk_sdf(dev):
@@ -2662,8 +2692,8 @@ def check_phase14_kernels(dev, fleet):
                  probs.sdf.packed is not None)
 
 
-def lh_rows(dev, card, B=None, seed=0, repeats=3):
-    """bench_longhorizon.py's protocol: at each n of LH_NS, on B
+def lh_rows(dev, card, B=None, seed=0, repeats=3, ns=LH_NS):
+    """bench_longhorizon.py's protocol: at each n of `ns`, on B
     (default LH_B) lh_system systems drawn from numpy `seed`, K1 and the
     partitioned solve (P = max(2, min(64, n // 64))) on the same systems,
     `repeats` host-timed solves after a warm-up, the device time between
@@ -2677,7 +2707,7 @@ def lh_rows(dev, card, B=None, seed=0, repeats=3):
 
     rng = np.random.default_rng(seed)
     on_card = dev.type == "cuda"
-    for n in LH_NS:
+    for n in ns:
         D, U, b = lh_system(rng, n, dev, B)
         P = max(2, min(64, n // 64))
         solvers = (("K1", lambda: batched_block_tridiag_solve(D, U, b)),
@@ -2917,14 +2947,19 @@ def check_variant_lookups(dev, wam_sdf, wam_pts, eps_total, default_ms):
     """K3's new instantiations against their plain versions (check_lookup):
     float16 and bfloat16 rows and the hull and coarse screens (thresholds
     eps_total per sphere) at the main path's queries, the corner-major
-    table at PointRobot2D's and MultiWorld2D's queries and on the edges.
-    Each is timed (device_ms, L2 flushed) beside its own bound, and the
-    default instantiation again, which must stay within 3% of its phase-5
-    time. Returns the kernels' line's `variants` and the default's time."""
+    table at PointRobot2D's and MultiWorld2D's queries (its interleaved and
+    its direct route) and on the edges. Each is timed (device_ms, L2
+    flushed) beside its own bound and its plain version's time, the
+    row-major planar default checked and timed beside the corner-major
+    table at both planar shapes with F.grid_sample's device
+    time as their yardstick, and the default 3D instantiation again, which
+    must stay within 3% of its phase-5 time. Returns the kernels' line's
+    `variants` and the default's time."""
     import torch
     from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
     from gpmp2_tpu_torch.obstacle.sdf import PlanarSDF, pack_planar_sdf, pack_sdf
-    from gpmp2_tpu_torch.ops.sdf_lookup import screen_bound, sdf_lookup_cuda
+    from gpmp2_tpu_torch.ops.sdf_lookup import (corner_major_route, screen_bound,
+                                                sdf_lookup_cuda, sdf_lookup_torch)
 
     f32 = torch.float32
     N = wam_pts.shape[0]
@@ -2933,15 +2968,16 @@ def check_variant_lookups(dev, wam_sdf, wam_pts, eps_total, default_ms):
     variants = {}
 
     def timed(name, sdf, pts, kw, bound_args, qpw=0, screened=None):
-        ms = device_ms(lambda: sdf_lookup_cuda(pts, *_lookup_operands(sdf, True), qpw,
-                                               **kw), flush=True)
+        operands = _lookup_operands(sdf, True)
+        ms = device_ms(lambda: sdf_lookup_cuda(pts, *operands, qpw, **kw), flush=True)
+        plain_ms = cuda_ms(lambda: sdf_lookup_torch(pts, *operands, qpw, **kw), 3)
         b = bound_args()
         frac = 0.0 if screened is None else float(screened.float().mean())
-        variants[name] = {"ms": ms[0], "bound_ms": b[0], "bound_by": b[1],
-                          "screened_fraction": frac}
+        variants[name] = {"ms": ms[0], "plain_ms": plain_ms, "bound_ms": b[0],
+                          "bound_by": b[1], "screened_fraction": frac}
         log(f"K3 {name} at N={pts.shape[0]}: device time, L2 flushed, {_spread(ms)}; bound "
             f"{b[0]:.6f} ms ({b[1]}; {b[2]} distinct rows), {100 * b[0] / ms[0]:.1f}% of it"
-            f"; screened fraction {frac:.4f}")
+            f"; screened fraction {frac:.4f}; plain {plain_ms:.4f} ms")
 
     for name, dtype in (("f16", torch.float16), ("bf16", torch.bfloat16)):
         narrow = pack_sdf(wam_sdf, dtype)
@@ -2980,39 +3016,48 @@ def check_variant_lookups(dev, wam_sdf, wam_pts, eps_total, default_ms):
     if abs(change) > 0.03:
         raise AssertionError(f"K3's default moved {100 * change:+.2f}% from phase 5")
 
-    # the corner-major planar table: PointRobot2D's queries on OneObstacle,
+    # the planar instantiations: PointRobot2D's queries on OneObstacle,
     # MultiWorld2D's 8192 worlds of 64^2, the edges
     rng = np.random.default_rng(15)
     ds = generate_2d_dataset("OneObstacleDataset")
     field = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, device=dev)
-    cm, rm = pack_planar_sdf(field, corner_major=True), pack_planar_sdf(field)
     ext = np.array([ds.cols, ds.rows]) * ds.cell_size
     pts2 = torch.as_tensor(
         ds.origin + rng.uniform(-0.05, 1.05, (SUITE_BATCH["PointRobot2D"] * 61, 2)) * ext,
         dtype=f32, device=dev)
-    check_lookup("OneObstacle corner-major f32", cm, pts2, True)
-    check_lookup("OneObstacle corner-major f64", cm.to(dtype=torch.float64), pts2.double(),
-                 True)
-    row_ms = device_ms(lambda: sdf_lookup_cuda(pts2, *_lookup_operands(rm, True)), flush=True)
-    # the four corners of the distinct cells read once, 16 B either way
-    timed("corner_major", cm, pts2, {"corner_major": True}, lambda: k3_bound(pts2, cm))
-    variants["corner_major"]["row_major_ms"] = row_ms[0]
-    log(f"K3 row-major at the same queries: {_spread(row_ms)}")
-
     n, Bw, qpw = 64, SUITE_BATCH["MultiWorld2D"], 33
     ys = -1.5 + 3.0 / (n - 1) * np.arange(n)
     X, Y = np.meshgrid(ys, ys)
     cys = rng.uniform(-0.3, 0.3, Bw)
     data = np.sqrt(X[None] ** 2 + (Y[None] - cys[:, None, None]) ** 2) - 0.3
-    worlds = pack_planar_sdf(PlanarSDF(
-        torch.tensor([-1.5, -1.5], dtype=f32, device=dev),
-        torch.tensor(3.0 / (n - 1), dtype=f32, device=dev),
-        torch.as_tensor(data, dtype=f32, device=dev)), corner_major=True)
+    worlds = PlanarSDF(torch.tensor([-1.5, -1.5], dtype=f32, device=dev),
+                       torch.tensor(3.0 / (n - 1), dtype=f32, device=dev),
+                       torch.as_tensor(data, dtype=f32, device=dev))
     ptsw = torch.as_tensor(rng.uniform(-1.6, 1.6, (Bw * qpw, 2)), dtype=f32, device=dev)
-    check_lookup("MultiWorld corner-major f32", worlds, ptsw, True, qpw)
-    check_lookup("MultiWorld corner-major f64", worlds.to(dtype=torch.float64),
-                 ptsw.double(), True, qpw)
-    check_lookup_edges("OneObstacle corner-major", cm, dev, (True,))
+    for suffix, raw, pts, q, route in (("", field, pts2, 0, "interleaved"),
+                                       ("_multiworld", worlds, ptsw, qpw, "direct")):
+        cm, rm = pack_planar_sdf(raw, corner_major=True), pack_planar_sdf(raw)
+        name = "OneObstacle" if not q else "MultiWorld"
+        got = corner_major_route(pts.shape[0], max(raw.num_worlds, 1), raw.cells, 4)
+        if got != route:
+            raise AssertionError(f"K3 {name} corner-major: the {got} route, not {route}")
+        check_lookup(f"{name} row-major f32", rm, pts, True, q)
+        check_lookup(f"{name} corner-major ({route}) f32", cm, pts, True, q)
+        check_lookup(f"{name} corner-major ({route}) f64", cm.to(dtype=torch.float64),
+                     pts.double(), True, q)
+        # the four corners of the distinct cells (of each world) read once,
+        # 16 B either way
+        timed("row_major_2d" + suffix, rm, pts, {}, lambda: k3_bound(pts, rm, qpw=q), q)
+        timed("corner_major" + suffix, cm, pts, {"corner_major": True},
+              lambda: k3_bound(pts, cm, qpw=q), q)
+        variants["corner_major" + suffix]["route"] = route
+        library = _grid_sample_2d_ms(raw, pts, q)
+        for layout in ("row_major_2d", "corner_major"):
+            variants[layout + suffix]["library_ms"] = library[0]
+        log(f"K3 planar yardstick at N={pts.shape[0]}: F.grid_sample (distance only, no "
+            f"gradient), device time, L2 flushed, {_spread(library)}")
+    check_lookup_edges("OneObstacle corner-major", pack_planar_sdf(field, corner_major=True),
+                       dev, (True,))
     return variants, again[0]
 
 
@@ -3100,11 +3145,12 @@ def corner_major_suite(dev, card, wam_sdf):
     return out
 
 
-def sdf_variants_phase(dev, card, inputs, wam_pts, default_ms):
+def sdf_variants_phase(dev, card, inputs, wam_pts, default_ms, suite_rows):
     """Phase 15: K3's variants against their plain versions and timed, the
     main path once per option, the corner-major suite rows. Returns the
-    kernels' line's `variants`, with each option's K3 launches, and the
-    default instantiation's time in this phase."""
+    kernels' line's `variants`, with each option's K3 launches (the
+    row-major planar default's from phase 8's suite rows), and the default
+    instantiation's time in this phase."""
     robot, sdf, setting, *_ = inputs
     eps_total = robot.sphere_radii + setting.epsilon
     t0 = time.perf_counter()
@@ -3115,6 +3161,9 @@ def sdf_variants_phase(dev, card, inputs, wam_pts, default_ms):
             "launches_main_path"] = launches["sdf_lookup"]
     for name, launches in corner_major_suite(dev, card, sdf).items():
         variants["corner_major"][f"launches_{name}"] = launches["sdf_lookup"]
+    for name in ("PointRobot2D", "Arm3Limits2D", "MultiWorld2D"):
+        layout = "row_major_2d" + ("_multiworld" if name == "MultiWorld2D" else "")
+        variants[layout][f"launches_{name}"] = suite_rows[name]["launches"]["sdf_lookup"]
     return variants, again_ms
 
 
@@ -3290,7 +3339,7 @@ def main():
 
     # 15. the opt-in SDF variants
     k3["variants"], k3["ms_phase15"] = sdf_variants_phase(dev, card, inputs, wam_pts,
-                                                          k3["ms"])
+                                                          k3["ms"], suite_rows)
     log(f"SDF variants done at {time.perf_counter() - t_start:.1f} s")
 
     # 16. the measuring entry points

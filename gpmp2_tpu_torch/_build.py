@@ -46,9 +46,9 @@ _SIGNATURES = {
     "gpmp2_fk_arm_plan": [_I, _I, _I, _IP],
     # pts, stride, table, origin, cell, out, ok, N, queries_per_world, nz,
     # rows, cols, dim, layout, storage, f64, screen, thresh, n_thresh,
-    # screen table, coarse cell, screen shape (3), stream
+    # screen table, coarse cell, screen shape (3), scratch, stream
     "gpmp2_sdf_lookup": ([_P, _I] + [_P] * 5 + [_L] * 2 + [_I] * 8 + [_P, _L] + [_P] * 2
-                         + [_I] * 3 + [_P]),
+                         + [_I] * 3 + [_P] * 2),
 }
 
 _lock = threading.Lock()

@@ -30,7 +30,7 @@
 //   - narrow 3D rows (S = __half or __nv_bfloat16, pack_sdf(dtype=)):
 //     one 16-B uint4 load a row, converted to the query type after it;
 //   - the corner-major 2D layout (pack_planar_sdf(corner_major=True)):
-//     (W, 4, cells), four scalar loads at stride cells.
+//     (W, 4, cells), read by one of two routes (below).
 // Its screens (3D, one shared world) are instantiations of a second,
 // persistent kernel that shares the lookup (`interpolate`):
 //   - the hull screen (SignedDistanceField.screen_boxes): bound = min_k
@@ -60,6 +60,38 @@
 //
 // Per-problem worlds: query i reads world i / queries_per_world (0: one
 // shared world); table offsets are 64-bit.
+//
+// The planar lookups (one thread a query, as the 3D default) and what was
+// measured of them on an H100 (PERF.md, tools/time_k3_screens.py
+// --planar --diagnose): at PointRobot2D's 999,424 queries on the 300^2
+// OneObstacle map the row-major lookup takes ~18 us against a ~14 us
+// streaming floor (every query at one cell: the points and outputs
+// alone). The rest is the rows' L2 traffic: a random 16-B row costs a
+// 32-B sector from L2. Several queries a thread made it slower (fewer
+// resident threads); a persistent grid with the next point in flight,
+// 8-B point loads, cache-streaming hints, the L1 carveout and an L2
+// prefetch of the table each gained 2% or less, so it keeps its form.
+// A corner-major table costs four sectors a query read in place
+// (~37 us), so it has two routes:
+//   - interleaved: interleave_corners copies the (W, 4, cells) table into
+//     packed (W * cells, 4) rows in a scratch buffer (16 B a cell read,
+//     16 B written, in float32), then the row-major lookup reads them. It
+//     is launched as a programmatic dependent (PDL), so its blocks start
+//     and load their points while the copy runs and wait
+//     (griddepcontrol.wait) only before their first row;
+//   - direct: four loads at stride cells, where copying the whole table
+//     costs more than the sectors it saves.
+//   The wrapper chooses (ops/sdf_lookup.py, corner_major_route): the copy
+//   moves 8 * itemsize bytes a cell and a launch costs about 4 MB of
+//   memory time (~1.3 us); it saves three 32-B sectors, 96 B, a query. So
+//   interleaved where 8 * itemsize * W * cells + 4 MB <= 96 * N: at
+//   PointRobot2D's 999,424 queries on OneObstacle's 90,000 cells (7 MB
+//   against 96 MB) ~19 us instead of ~37; at MultiWorld2D's 270,336
+//   queries on 8,192 worlds of 4,096 cells (1.08 GB against 26 MB) direct.
+//   Both routes give the bits of the row-major lookup.
+//   The planar interpolant spells out its roundings (bilinear_rn), so the
+//   bits stay those of the lookup that contracted the same expressions
+//   implicitly, whatever the kernel around them.
 //
 // Query points are read in place with a stride: point i's coordinate k is
 // pts[i * stride + k], so kernel K2's (N, S, 3) sphere centres go in as
@@ -92,7 +124,8 @@ constexpr int kThreads = 256;
 constexpr int kMaxBoxes = 1024;  // 48 KB of float64 boxes in shared memory
 constexpr int kCachedDevices = 64;  // devices whose screened grid size is kept
 
-enum Layout { kRaw = 0, kPacked = 1, kCornerMajor = 2 };
+// kInterleaved: a corner-major table read through packed rows in a scratch
+enum Layout { kRaw = 0, kPacked = 1, kCornerMajor = 2, kInterleaved = 3 };
 enum ScreenKind { kNoScreen = 0, kHull = 1, kCoarse = 2 };
 
 // the screen's operands; unused (all zero) without a screen
@@ -115,6 +148,11 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // max / min that propagate NaN, like jnp.maximum / jnp.min and torch's
 template <typename T>
@@ -214,6 +252,24 @@ template <> struct RowLoader<double, __half, 8> : NarrowRowLoader<double, __half
 template <> struct RowLoader<float, __nv_bfloat16, 8> : NarrowRowLoader<float, __nv_bfloat16> {};
 template <> struct RowLoader<double, __nv_bfloat16, 8> : NarrowRowLoader<double, __nv_bfloat16> {};
 
+// the planar interpolant and its gradient in grid units from the corners
+// d00 d10 d01 d11 (row, col offsets), in the JAX lookup's order with each
+// rounding spelled out: every product and difference rounded once, each
+// sum of products one fused multiply-add per product after the first
+// pair, whose first product is fused (as the compiler contracts these
+// expressions), so the bits do not depend on the kernel around them
+template <typename T>
+__device__ __forceinline__ void bilinear_rn(const T* v, T fx, T fy, T& dist, T& g_row,
+                                            T& g_col) {
+  const T d00 = v[0], d10 = v[1], d01 = v[2], d11 = v[3];
+  const T gx = sub_rn(T(1), fx), gy = sub_rn(T(1), fy);
+  dist = fma_rn(mul_rn(fy, fx), d11,
+                fma_rn(mul_rn(gy, fx), d01,
+                       fma_rn(mul_rn(gy, gx), d00, mul_rn(mul_rn(fy, gx), d10))));
+  g_row = fma_rn(gx, sub_rn(d10, d00), mul_rn(fx, sub_rn(d11, d01)));
+  g_col = fma_rn(gy, sub_rn(d01, d00), mul_rn(fy, sub_rn(d11, d10)));
+}
+
 // the lookup of query i at cell coordinates (x, y, z): the clamped
 // coordinates, the low corner, one row (or the corners of the raw field)
 // of world i / queries_per_world (0: one shared world), then the
@@ -291,16 +347,14 @@ __device__ __forceinline__ void interpolate(const S* __restrict__ table, T x, T 
         + (1 - fy) * fx * (d101 - d001)
         + fy * fx * (d111 - d011);
   } else {
-    const T d00 = v[0], d10 = v[1], d01 = v[2], d11 = v[3];
-    dist = (1 - fy) * (1 - fx) * d00 + fy * (1 - fx) * d10
-         + (1 - fy) * fx * d01 + fy * fx * d11;
-    g_row = (1 - fx) * (d10 - d00) + fx * (d11 - d01);
-    g_col = (1 - fy) * (d01 - d00) + fy * (d11 - d10);
+    bilinear_rn(v, fx, fy, dist, g_row, g_col);
   }
 }
 
 // the unscreened lookup, one thread per query; grid = (nz, rows, cols),
-// nz is 1 for DIM == 2
+// nz is 1 for DIM == 2. A planar launch after interleave_corners (PDL)
+// waits for it before reading a row; griddepcontrol.wait returns at once
+// in any other launch
 template <int DIM, typename T, typename S, int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
 sdf_lookup_kernel(const T* __restrict__ pts, int stride,
@@ -321,6 +375,7 @@ sdf_lookup_kernel(const T* __restrict__ pts, int stride,
   if constexpr (DIM == 3) z = (p[2] - origin[2]) / cs;
   bool in = x >= T(0) && x <= T(cols - 1) && y >= T(0) && y <= T(rows - 1);
   if constexpr (DIM == 3) in = in && z >= T(0) && z <= T(nz - 1);
+  if constexpr (DIM == 2) asm volatile("griddepcontrol.wait;" ::: "memory");
 
   T dist, g_row, g_col, g_z = T(0);
   interpolate<DIM, T, S, LAYOUT>(table, x, y, z, nz, rows, cols, i, queries_per_world, dist,
@@ -331,6 +386,29 @@ sdf_lookup_kernel(const T* __restrict__ pts, int stride,
   out[2 * N + i] = g_row / cs;
   if constexpr (DIM == 3) out[3 * N + i] = g_z / cs;
   ok[i] = in ? 1 : 0;
+}
+
+// a corner-major table (W, 4, cells) as packed rows (W * cells, 4) in
+// `rows`, one cell a thread: four loads at stride cells, each coalesced
+// across the warp, and one 16-B store (two in float64). Its dependent
+// lookup may start as soon as every block has begun
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+interleave_corners(const T* __restrict__ table, T* __restrict__ rows, long long total,
+                   long long cells) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= total) return;
+  // cell j of world w starts its corners at w * 4 * cells + j % cells
+  const T* c = table + j + 3 * (j / cells) * cells;
+  const T v0 = __ldg(c), v1 = __ldg(c + cells), v2 = __ldg(c + 2 * cells),
+          v3 = __ldg(c + 3 * cells);
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float4*>(rows)[j] = make_float4(v0, v1, v2, v3);
+  } else {
+    reinterpret_cast<double2*>(rows)[2 * j] = make_double2(v0, v1);
+    reinterpret_cast<double2*>(rows)[2 * j + 1] = make_double2(v2, v3);
+  }
 }
 
 // ---- the screens ------------------------------------------------------------
@@ -506,18 +584,47 @@ struct Args {
   long long N, qpw;
   int nz, rows, cols;
   Screen<T> screen;
+  void* scratch;  // the interleaved route's (W * cells, 4) rows
 };
 
+// the unscreened lookup of `table` (default the operands' own); with
+// `pdl`, launched as a programmatic dependent of the stream's last kernel
 template <int DIM, typename T, typename S, int LAYOUT>
-cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+cudaError_t launch(const Args<T>& a, cudaStream_t stream, const void* table = nullptr,
+                   bool pdl = false) {
   const long long grid = (a.N + kThreads - 1) / kThreads;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  sdf_lookup_kernel<DIM, T, S, LAYOUT><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      static_cast<const T*>(a.pts), a.stride, static_cast<const S*>(a.table),
-      static_cast<const T*>(a.origin), static_cast<const T*>(a.cell),
-      static_cast<T*>(a.out), static_cast<unsigned char*>(a.ok), a.N, a.qpw, a.nz,
-      a.rows, a.cols);
-  return cudaGetLastError();
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(grid));
+  config.blockDim = dim3(kThreads);
+  config.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = &attr;
+  config.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&config, sdf_lookup_kernel<DIM, T, S, LAYOUT>,
+                            static_cast<const T*>(a.pts), a.stride,
+                            static_cast<const S*>(table ? table : a.table),
+                            static_cast<const T*>(a.origin), static_cast<const T*>(a.cell),
+                            static_cast<T*>(a.out), static_cast<unsigned char*>(a.ok), a.N,
+                            a.qpw, a.nz, a.rows, a.cols);
+}
+
+// a corner-major table by its interleaved route: interleave_corners into
+// the scratch rows, then the packed planar lookup on them as its
+// programmatic dependent
+template <typename T>
+cudaError_t launch_interleaved(const Args<T>& a, cudaStream_t stream) {
+  const long long cells = static_cast<long long>(a.rows) * a.cols;
+  const long long total = (a.qpw > 0 ? a.N / a.qpw : 1) * cells;
+  const long long grid = (total + kThreads - 1) / kThreads;
+  if (a.scratch == nullptr || grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  interleave_corners<T><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+      static_cast<const T*>(a.table), static_cast<T*>(a.scratch), total, cells);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch<2, T, T, kPacked>(a, stream, a.scratch, true);
 }
 
 // the persistent screened launch: the blocks that fit on each SM with the
@@ -590,6 +697,7 @@ cudaError_t dispatch(int dim, int layout, int storage, int screen, const Args<T>
     if (layout == kPacked) return launch<2, T, T, kPacked>(a, s);
     if (layout == kRaw) return launch<2, T, T, kRaw>(a, s);
     if (layout == kCornerMajor) return launch<2, T, T, kCornerMajor>(a, s);
+    if (layout == kInterleaved) return launch_interleaved<T>(a, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -599,12 +707,12 @@ int run(const void* pts, int stride, const void* table, const void* origin,
         const void* cell, void* out, void* ok, long long N, long long qpw, int nz,
         int rows, int cols, int dim, int layout, int storage, int screen,
         const void* thresh, long long n_thresh, const void* screen_table,
-        const void* coarse_cell, int s0, int s1, int s2, cudaStream_t s) {
+        const void* coarse_cell, int s0, int s1, int s2, void* scratch, cudaStream_t s) {
   Screen<T> sc{static_cast<const T*>(thresh), n_thresh,
                static_cast<const T*>(screen_table), static_cast<const T*>(coarse_cell),
                screen == kHull ? s0 : 0, s0, s1, s2};
   const Args<T> a{pts, stride, table, origin, cell, out, ok, N, qpw,
-                  dim == 3 ? nz : 1, rows, cols, sc};
+                  dim == 3 ? nz : 1, rows, cols, sc, scratch};
   return dispatch<T>(dim, layout, storage, screen, a, s);
 }
 
@@ -614,7 +722,9 @@ extern "C" {
 
 // pts (N, stride) query points, coordinate k of point i at
 // pts[i * stride + k]; table: layout 0 the raw (W * cells) field, 1
-// packed (W * cells, 2^dim) rows, 2 corner-major (W, 4, cells) (2D);
+// packed (W * cells, 2^dim) rows, 2 corner-major (W, 4, cells) (2D) read
+// directly, 3 the same interleaved first into `scratch` (W * cells, 4),
+// 16-B aligned;
 // storage 0 the query type, 1 float16, 2 bfloat16 (packed 3D rows);
 // origin (>= dim,), cell (); -> out (dim + 1, N) rows dist, gx, gy[, gz],
 // ok (N,) bytes. grid (nz, rows, cols), nz ignored for dim 2. screen 0
@@ -628,17 +738,17 @@ int gpmp2_sdf_lookup(const void* pts, int stride, const void* table,
                      int storage, int f64, int screen, const void* thresh,
                      long long n_thresh, const void* screen_table,
                      const void* coarse_cell, int s0, int s1, int s2,
-                     void* stream) {
+                     void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (screen != kNoScreen && queries_per_world != 0) return cudaErrorInvalidValue;
   return f64 ? run<double>(pts, stride, table, origin, cell, out, ok, N,
                            queries_per_world, nz, rows, cols, dim, layout, storage,
                            screen, thresh, n_thresh, screen_table, coarse_cell, s0,
-                           s1, s2, s)
+                           s1, s2, scratch, s)
              : run<float>(pts, stride, table, origin, cell, out, ok, N,
                           queries_per_world, nz, rows, cols, dim, layout, storage,
                           screen, thresh, n_thresh, screen_table, coarse_cell, s0,
-                          s1, s2, s);
+                          s1, s2, scratch, s);
 }
 
 }  // extern "C"

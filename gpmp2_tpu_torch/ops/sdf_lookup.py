@@ -26,7 +26,9 @@ Operands (both versions):
     converted to the query type after the read
     (gpmp2_tpu/obstacle/sdf.py:100-122, 344-345);
   - corner-major (2D only, `corner_major=True`): (W, 4, cells), corner k
-    of cell l at [w, k, l] (gpmp2_tpu/obstacle/sdf.py:132-161);
+    of cell l at [w, k, l] (gpmp2_tpu/obstacle/sdf.py:132-161); the
+    kernel reads it in place or, where `corner_major_route` says so,
+    copies it into packed rows first (a scratch the wrapper allocates);
 - origin (>= dim,), cell (): the grid's world frame;
 - queries_per_world: 0 for one shared world, else query i reads world
   i // queries_per_world.
@@ -60,12 +62,15 @@ import torch
 
 from .. import _build
 
-__all__ = ["corner_offsets", "screen_bound", "sdf_lookup_torch", "sdf_lookup_cuda",
-           "sdf_lookup_rows", "NARROW_DTYPES"]
+__all__ = ["corner_offsets", "corner_major_route", "screen_bound", "sdf_lookup_torch",
+           "sdf_lookup_cuda", "sdf_lookup_rows", "NARROW_DTYPES"]
 
 # storage types of a packed 3D table narrower than its queries, in the
 # order of the kernel's `storage` code (1, 2)
 NARROW_DTYPES = (torch.float16, torch.bfloat16)
+# a launch's cost in bytes of memory time (~1.3 us at 3.35 TB/s), for
+# corner_major_route
+LAUNCH_BYTES = 4 << 20
 # hull boxes the kernel stages in shared memory (48 KB of float64)
 _MAX_SCREEN_BOXES = 1024
 _SQRT3 = math.sqrt(3.0)
@@ -80,6 +85,21 @@ def corner_offsets(grid):
     if len(grid) == 3:
         offs += [rows * cols + o for o in offs]
     return offs
+
+
+def corner_major_route(N, worlds, cells, itemsize):
+    """How the kernel reads a corner-major table of `worlds` x `cells`
+    cells for N queries of `itemsize`-byte values: "interleaved" (the
+    table copied into packed rows, then one row a query) or "direct" (four
+    loads a query, each its own 32-B sector). The copy moves the table
+    twice, 8 * itemsize bytes a cell, and its launch costs about
+    LAUNCH_BYTES of memory time; it saves three sectors, 96 B, a query. So:
+    interleaved where 8 * itemsize * worlds * cells + LAUNCH_BYTES <= 96 *
+    N. PointRobot2D's 999,424 queries on OneObstacle's 90,000 cells: 7 MB
+    against 96 MB, interleaved; MultiWorld2D's 270,336 queries on 8,192
+    worlds of 4,096 cells: 1.08 GB against 26 MB, direct."""
+    need = 8 * itemsize * worlds * cells + LAUNCH_BYTES
+    return "interleaved" if need <= 96 * N else "direct"
 
 
 def _low_corner(coord, size):
@@ -275,7 +295,15 @@ def sdf_lookup_cuda(pts, table, origin, cell, grid, queries_per_world=0, *,
     if N == 0:
         return (*out.unbind(0), ok)
     nz = grid[0] if dim == 3 else 1
-    layout = 2 if corner_major else int(table.dim() == 2)
+    layout = int(table.dim() == 2)
+    scratch = ctypes.c_void_p(0)
+    if corner_major:
+        worlds, _, cells = table.shape
+        layout = 2
+        if corner_major_route(N, worlds, cells, table.element_size()) == "interleaved":
+            layout = 3
+            rows = torch.empty((worlds * cells, 4), dtype=table.dtype, device=table.device)
+            scratch = rows.data_ptr()
     storage = (NARROW_DTYPES.index(table.dtype) + 1
                if table.dtype in NARROW_DTYPES and dim == 3 else 0)
     screen = 0 if thresh is None else (1 if boxes is not None else 2)
@@ -297,7 +325,7 @@ def sdf_lookup_cuda(pts, table, origin, cell, grid, queries_per_world=0, *,
             queries_per_world, nz, grid[-2], grid[-1], dim, layout, storage,
             int(pts.dtype == torch.float64), screen,
             null if thresh is None else thresh.data_ptr(), n_thresh, screen_table,
-            ccell, *screen_shape, ctypes.c_void_p(stream))
+            ccell, *screen_shape, scratch, ctypes.c_void_p(stream))
     _build.check(rc, "sdf_lookup launch")
     sdf_lookup_cuda.launches += 1
     return (*out.unbind(0), ok)

@@ -100,16 +100,18 @@ def _root_files():
 
 
 def test_bench_longhorizon_cpu_small():
-    """bench_torch.py --cpu --config longhorizon at B = 8: one row per (n,
-    solver) with the stated keys, residuals below 1e-4, and no file written
-    at the root (LONGHORIZON.json stays the TPU run's)."""
+    """bench_torch.py --cpu --config longhorizon at B = 8 and n = 65 and 257
+    (P = 2 and 4; LH_NS): one row per (n, solver) with the stated keys,
+    residuals below 1e-4, and no file written at the root (LONGHORIZON.json
+    stays the TPU run's)."""
     before = _root_files()
+    ns = (65, 257)
     out = subprocess.run([sys.executable, "bench_torch.py", "--cpu", "--config", "longhorizon"],
-                         cwd=REPO, env=_env(LH_BATCH="8"), capture_output=True, text=True,
-                         timeout=300)
+                         cwd=REPO, env=_env(LH_BATCH="8", LH_NS=",".join(map(str, ns))),
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
-    want = [(n, s) for n in cs.LH_NS
+    want = [(n, s) for n in ns
             for s in ("K1", f"partitioned(P={max(2, min(64, n // 64))})")]
     assert [(r["n"], r["solver"]) for r in rows] == want
     for r in rows:

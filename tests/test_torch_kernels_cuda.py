@@ -287,6 +287,126 @@ def test_sdf_lookup_kernel_corner_major(cuda_device, worlds, dtype):
         assert torch.equal(g.isnan(), r.isnan()) and torch.equal(g.nan_to_num(), r.nan_to_num())
 
 
+def _planar_case(worlds, N, dtype, device, grid=(40, 50), seed=4):
+    """Points over a planar grid (cell 0.05) and a margin outside it, the
+    first queries (where N > 1) NaN in x, NaN in y, +inf, -inf, far outside
+    and on the top face, and random tables of either layout that no
+    packing built: rows (W * cells, 4) and corner-major (W, 4, cells)."""
+    rng = np.random.default_rng(seed + N + worlds)
+    cells = grid[0] * grid[1]
+    W = max(worlds, 1)
+    origin, cell = np.array([-0.5, -1.0]), 0.05
+    ext = np.array(grid[::-1]) * cell
+    pts = origin + rng.uniform(-0.1, 1.1, size=(N, 2)) * ext
+    top = origin + (np.array(grid[::-1]) - 1) * cell
+    special = [[np.nan, 0.0], [0.0, np.nan], [np.inf, 0.0], [0.0, -np.inf], [1e6, -1e6],
+               list(top)]
+    if N > 1:
+        pts[:min(N, len(special))] = special[:N]
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    return (f(pts), f(rng.normal(size=(W * cells, 4))), f(rng.normal(size=(W, 4, cells))),
+            f(origin), f(cell), grid)
+
+
+def _force_route(monkeypatch, route):
+    """Make the wrapper take `route` for every corner-major table."""
+    from gpmp2_tpu_torch.ops import sdf_lookup
+
+    monkeypatch.setattr(sdf_lookup, "corner_major_route", lambda *a: route)
+
+
+def _equal_bits(a, b):
+    assert torch.equal(a[-1], b[-1])
+    for g, r in zip(a[:-1], b[:-1]):
+        assert torch.equal(g.isnan(), r.isnan()) and torch.equal(g.nan_to_num(), r.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["row_major", "direct", "interleaved"])
+@pytest.mark.parametrize("worlds", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("per_world", [1, 259, 350_003])
+def test_sdf_planar_kernel_routes(cuda_device, monkeypatch, route, worlds, dtype, per_world):
+    """The planar kernel on random tables of both layouts, one shared world
+    or one per problem (3 worlds), each corner-major route forced: against
+    the plain version at N = 1 (one world), N not a multiple of any tile
+    and N over a million (above one wave of blocks), NaN, infinite and
+    far-off points among the queries (N > 1); the two corner-major routes
+    bit-equal."""
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    N = per_world * max(worlds, 1)
+    pts, rows, cm, origin, cell, grid = _planar_case(worlds, N, dtype, cuda_device)
+    qpw = per_world if worlds else 0
+    if route == "row_major":
+        table, kw = rows, {}
+    else:
+        _force_route(monkeypatch, route)
+        table, kw = cm, {"corner_major": True}
+    got = sdf_lookup_cuda(pts, table, origin, cell, grid, qpw, **kw)
+    _hold_lookup(got, sdf_lookup_torch(pts, table, origin, cell, grid, qpw, **kw), dtype,
+                 nan_first=N > 1)
+    if route != "row_major":
+        _force_route(monkeypatch, "direct" if route == "interleaved" else "interleaved")
+        _equal_bits(got, sdf_lookup_cuda(pts, table, origin, cell, grid, qpw, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("worlds", [0, 2])
+def test_sdf_planar_route_threshold(cuda_device, monkeypatch, dtype, worlds):
+    """The chooser's threshold (8 * itemsize * W * cells + LAUNCH_BYTES <=
+    96 * N): the last N below it reads the corner-major table directly, the
+    first N at it interleaves, each against the plain version and
+    bit-equal to the other route; the points (N, 3) as K2's centres are,
+    strided."""
+    from gpmp2_tpu_torch.ops import sdf_lookup
+
+    W = max(worlds, 1)
+    cells = 40 * 50
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    # the least N that interleaves
+    first = -(-(8 * itemsize * W * cells + sdf_lookup.LAUNCH_BYTES) // 96)
+    if worlds:
+        first = -(-first // W) * W
+    taken = []
+    chooser = sdf_lookup.corner_major_route
+
+    def spy(*args):
+        taken.append(chooser(*args))
+        return taken[-1]
+    for N, want in ((first - W, "direct"), (first, "interleaved")):
+        pts, _, cm, origin, cell, grid = _planar_case(worlds, N, dtype, cuda_device)
+        pts = torch.cat([pts, torch.zeros_like(pts[:, :1])], 1)
+        qpw = N // W if worlds else 0
+        monkeypatch.setattr(sdf_lookup, "corner_major_route", spy)
+        got = sdf_lookup.sdf_lookup_cuda(pts, cm, origin, cell, grid, qpw, corner_major=True)
+        assert taken[-1] == want
+        _hold_lookup(got, sdf_lookup.sdf_lookup_torch(pts, cm, origin, cell, grid, qpw,
+                                                      corner_major=True), dtype)
+        _force_route(monkeypatch, "interleaved" if want == "direct" else "direct")
+        _equal_bits(got, sdf_lookup.sdf_lookup_cuda(pts, cm, origin, cell, grid, qpw,
+                                                    corner_major=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["row_major", "direct", "interleaved"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sdf_planar_kernel_2x2_world(cuda_device, monkeypatch, route, dtype):
+    """The 2 x 2 world (one cell, four corners; its corner-major table is
+    (4, 4)) on every route, 100 points over and around it."""
+    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda, sdf_lookup_torch
+
+    pts, rows, cm, origin, cell, grid = _planar_case(0, 100, dtype, cuda_device, grid=(2, 2))
+    if route == "row_major":
+        table, kw = rows, {}
+    else:
+        _force_route(monkeypatch, route)
+        table, kw = cm, {"corner_major": True}
+    got = sdf_lookup_cuda(pts, table, origin, cell, grid, **kw)
+    _hold_lookup(got, sdf_lookup_torch(pts, table, origin, cell, grid, **kw), dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("screen", ["hull", "coarse"])
 @pytest.mark.parametrize("table", ["packed", "raw", "float16"])

@@ -190,6 +190,41 @@ def test_corner_major_lookup_equals_row_major(worlds):
     assert_lookup_equal(got, jax.jit(fn)(jcm.data, jcm.packed, jnp.asarray(pts.numpy())))
 
 
+def test_corner_major_lookup_of_any_table_matches_jax():
+    """A (4, cells) table that no packing built (its corners unrelated to
+    the field): the port's plain corner-major lookup reads corner k of cell
+    l at [k, l], as JAX's planar_sdf_lookup_components does."""
+    j, t = planar_fields(0)
+    table = np.random.default_rng(9).normal(size=(4, t.cells))
+    jt = j._replace(packed=jnp.asarray(table))
+    tt = dataclasses.replace(t, packed=torch.from_numpy(table), corner_major=True)
+    pts = planar_queries(0, 300)
+    ref = jax.jit(jsdf.planar_sdf_lookup_components)(jt, jnp.asarray(pts[:, 0]),
+                                                     jnp.asarray(pts[:, 1]))
+    got = tsdf.sdf_lookup_points(tt, torch.from_numpy(pts))
+    assert_lookup_equal(got, ref)
+    # the table, not the field, gives the distances
+    assert np.abs(got[0].numpy() - tsdf.sdf_lookup_points(t, torch.from_numpy(pts))[0]
+                  .numpy())[1:].max() > 0.1
+
+
+@pytest.mark.parametrize("itemsize,worlds,cells,N,route", [
+    (4, 1, 90_000, 999_424, "interleaved"),  # PointRobot2D on OneObstacle
+    (4, 8192, 4096, 270_336, "direct"),  # MultiWorld2D
+    (4, 1, 90_000, 61, "direct"),  # one PointRobot2D problem
+    (4, 1, 90_000, 73_690, "direct"), (4, 1, 90_000, 73_691, "interleaved"),
+    (4, 1, 2000, 44_357, "direct"), (4, 1, 2000, 44_358, "interleaved"),
+    (8, 1, 2000, 45_023, "direct"), (8, 1, 2000, 45_024, "interleaved")])
+def test_corner_major_route(itemsize, worlds, cells, N, route):
+    """The kernel's route for a corner-major table: interleaved where
+    copying the table (8 * itemsize bytes a cell) and a launch (4 MB of
+    memory time) cost no more than the three extra 32-B sectors a query
+    of the direct reads."""
+    from gpmp2_tpu_torch.ops.sdf_lookup import corner_major_route
+
+    assert corner_major_route(N, worlds, cells, itemsize) == route
+
+
 def test_corner_major_2x2_world_quirk():
     """JAX tells the layouts apart by shape, and reads the corner-major
     table of a 2 x 2 world, (4, 4), as row-major: its distances differ from
