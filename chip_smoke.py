@@ -933,22 +933,19 @@ def main_path_queries(robot, sdf, setting, starts, goals):
 
 
 def reset_launches():
-    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
-    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda
-    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+    from gpmp2_tpu_torch.utils import trace
 
-    for fn in (block_tridiag_solve_cuda, arm_fk_spheres_cuda, sdf_lookup_cuda):
-        fn.launches = 0
+    trace.reset_counters()
 
 
 def read_launches():
-    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
-    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda
-    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+    """K1-K3's launches since `reset_launches`, from the port's counters
+    (gpmp2_tpu_torch/utils/trace.py)."""
+    from gpmp2_tpu_torch.utils import trace
 
-    return {"btsolve": block_tridiag_solve_cuda.launches,
-            "fk_arm": arm_fk_spheres_cuda.launches,
-            "sdf_lookup": sdf_lookup_cuda.launches}
+    c = trace.counters()
+    return {"btsolve": c["launches.k1"], "fk_arm": c["launches.k2"],
+            "sdf_lookup": c["launches.k3"]}
 
 
 def path_solver(inputs, params, fetch=False):

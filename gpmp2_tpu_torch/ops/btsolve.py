@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils import trace
 
 __all__ = ["block_tridiag_solve_torch", "block_tridiag_solve_cuda",
            "batched_block_tridiag_solve", "launch_plan", "MAX_BLOCK"]
@@ -112,11 +113,8 @@ def block_tridiag_solve_cuda(D, U, b, jacobi_scaling: bool = True, lam=None):
             x.data_ptr(), G.data_ptr(), B, n, m, int(jacobi_scaling),
             int(b.dtype == torch.float64), ctypes.c_void_p(stream))
     _build.check(rc, "btsolve launch")
-    block_tridiag_solve_cuda.launches += 1
+    trace.count("launches.k1")
     return x
-
-
-block_tridiag_solve_cuda.launches = 0
 
 
 def batched_block_tridiag_solve(D, U, b, jacobi_scaling: bool = True, lam=None):

@@ -19,6 +19,7 @@ import torch
 
 from .. import _build
 from ..kinematics.fk import ArmFK
+from ..utils import trace
 
 __all__ = ["structure_arrays", "fk_spheres_torch", "arm_fk_spheres_cuda",
            "arm_fk_spheres_batched", "launch_plan", "MAX_DOF"]
@@ -135,11 +136,8 @@ def arm_fk_spheres_cuda(consts, base, scent, link_ids, qflat):
         raise ValueError(f"no K2 tile of {S} spheres at dof {d} ({dtype}) "
                          "fits in shared memory")
     _build.check(rc, "fk_arm launch")
-    arm_fk_spheres_cuda.launches += 1
+    trace.count("launches.k2")
     return centers, J
-
-
-arm_fk_spheres_cuda.launches = 0
 
 
 def arm_fk_spheres_batched(model, qs):

@@ -61,6 +61,7 @@ import math
 import torch
 
 from .. import _build
+from ..utils import trace
 
 __all__ = ["corner_offsets", "corner_major_route", "screen_bound", "sdf_lookup_torch",
            "sdf_lookup_cuda", "sdf_lookup_rows", "NARROW_DTYPES"]
@@ -327,11 +328,8 @@ def sdf_lookup_cuda(pts, table, origin, cell, grid, queries_per_world=0, *,
             null if thresh is None else thresh.data_ptr(), n_thresh, screen_table,
             ccell, *screen_shape, scratch, ctypes.c_void_p(stream))
     _build.check(rc, "sdf_lookup launch")
-    sdf_lookup_cuda.launches += 1
+    trace.count("launches.k3")
     return (*out.unbind(0), ok)
-
-
-sdf_lookup_cuda.launches = 0
 
 
 def sdf_lookup_rows(pts, table, origin, cell, grid, queries_per_world=0, **variant):

@@ -23,6 +23,7 @@ from ..kinematics.fk import num_links_of
 from ..kinematics.robot import RobotModel
 from ..obstacle.sdf import PlanarSDF, SignedDistanceField, pack_planar_sdf, pack_sdf
 from ..solver.optimize import OptimizerParams, OptResult, optimize_batch
+from ..utils import trace
 from .problem import Trajectory, TrajProblem, collision_cost, traj_linearize
 from .settings import TrajOptimizerSetting
 from .traj_utils import init_traj_straight_line
@@ -329,14 +330,21 @@ def plan_batch(problems: TrajProblem, init_traj: Trajectory,
                params: OptimizerParams) -> OptResult:
     """Optimize a batch of problems from `init_traj` (pose, vel (B, n, d));
     with `params.rescue_f64`, lanes that gave up are solved again in
-    float64."""
-    res = optimize_batch(
-        functools.partial(traj_linearize, problems),
-        functools.partial(_retract_traj, problems.space),
-        init_traj, params,
-    )
-    if params.rescue_f64:
-        res = _rescue_gave_up_f64(problems, init_traj, params, res)
+    float64. A traced call (utils/trace.py) is one `plan_batch` span, the
+    rescue included, with the counts attempts, lanes_active and
+    lanes_offered."""
+    call = trace.begin()
+    try:
+        res = optimize_batch(
+            functools.partial(traj_linearize, problems),
+            functools.partial(_retract_traj, problems.space),
+            init_traj, params,
+        )
+        if params.rescue_f64:
+            res = _rescue_gave_up_f64(problems, init_traj, params, res)
+    finally:
+        if call is not None:
+            trace.end(call)
     return res
 
 

@@ -32,6 +32,10 @@ opts chains of 256 states or more into the one-process Schur solve
 package's chunked, compacted and tail schedules and its flat/lane layouts
 worked around the TPU's dispatch and tiling and have no counterpart here,
 so Dogleg runs on the one layout the port has.
+
+Inside a traced `plan_batch` call (utils/trace.py) each attempt is an
+`attempt` span holding its `stop_test` and `linearize` spans; the initial
+linearize and the stop test that ends the loop lie under the call.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.btsolve import batched_block_tridiag_solve
+from ..utils import trace
 
 __all__ = ["OptimizerParams", "OptResult", "optimize_batch", "dogleg_delta",
            "model_decrease"]
@@ -193,8 +198,13 @@ def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
     if params.verbosity not in ("none", "error"):
         raise ValueError(f"unknown verbosity {params.verbosity!r}")
 
+    rec = trace.current  # the traced plan_batch call, or None
     traj = traj0
+    if rec is not None:
+        span = rec.open()
     lin = linearize_fn(traj)
+    if rec is not None:
+        rec.close("linearize", span, rec.root)
     err = lin[3]
     B = err.shape[0]
     tr = torch.full_like(err, {"lm": params.lambda_init, "dogleg": params.delta_init,
@@ -209,11 +219,20 @@ def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
         from ..parallel.mesh import any_over_mesh
     total = params.max_iter + (0 if method == "gaussnewton" else params.reject_budget)
     for _ in range(total):
+        if rec is not None:
+            attempt = rec.open()
         active = ~converged & ~gave_up & (iters < params.max_iter)
+        if rec is not None:
+            test = rec.open()
+        # the attempt's one host sync; under a mesh the count is not read
         if params.ts_mesh is None:
-            if not bool(active.any()):
-                break
-        elif not any_over_mesh(params.ts_mesh, active.any()):
+            n_active = int(active.sum())
+            go = n_active > 0
+        else:
+            n_active, go = None, any_over_mesh(params.ts_mesh, active.any())
+        if rec is not None:
+            rec.close("stop_test", test, attempt[0] if go else rec.root)
+        if not go:
             break
         H_diag, H_off, b, _ = lin
         if method == "dogleg":
@@ -223,7 +242,11 @@ def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
         ok = torch.isfinite(delta).reshape(B, -1).all(dim=-1)
         delta = _select(ok, delta, torch.zeros_like(delta))
         cand = retract_fn(traj, delta)
+        if rec is not None:
+            span = rec.open()
         cand_lin = linearize_fn(cand)
+        if rec is not None:
+            rec.close("linearize", span, attempt[0])
         new_err = cand_lin[3]
         finite = ok & torch.isfinite(new_err)
 
@@ -273,6 +296,8 @@ def optimize_batch(linearize_fn: Callable, retract_fn: Callable, traj0,
         converged = converged | conv_now
         gave_up = gave_up | gave
         iters = iters + accept.to(torch.int32)
+        if rec is not None:
+            rec.attempt(attempt, n_active, B)
         if params.verbosity == "error":
             print(f"[optimize] accepted {int(accept.sum())}/{B} "
                   f"err(mean) {float(err.mean()):.6g} tr(mean) {float(tr.mean()):.4g} "

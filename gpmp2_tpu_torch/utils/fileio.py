@@ -14,8 +14,6 @@ import numpy as np
 import torch
 
 from ..device import host_array, resolve_device
-from ..obstacle.sdf import PlanarSDF, SignedDistanceField
-from ..planner.problem import Trajectory
 
 __all__ = ["save_sdf", "load_sdf", "read_sdf_vol_file", "save_trajectory",
            "load_trajectory"]
@@ -25,6 +23,8 @@ def save_sdf(path: str, sdf) -> None:
     """Save a PlanarSDF or SignedDistanceField to an .npz archive (replaces
     saveSDF, gpmp2.h:454-455 / SaveSDFExample.m); a packed table is not
     saved (`pack_sdf` rebuilds it)."""
+    from ..obstacle.sdf import PlanarSDF
+
     kind = "planar" if isinstance(sdf, PlanarSDF) else "3d"
     np.savez_compressed(path, kind=kind, origin=host_array(sdf.origin),
                         cell_size=host_array(sdf.cell_size), data=host_array(sdf.data))
@@ -32,6 +32,8 @@ def save_sdf(path: str, sdf) -> None:
 
 def load_sdf(path: str, dtype=torch.float32, device=None):
     """Load an .npz SDF saved by save_sdf (either package's)."""
+    from ..obstacle.sdf import PlanarSDF, SignedDistanceField
+
     f = lambda x: torch.as_tensor(x, dtype=dtype, device=resolve_device(device))  # noqa: E731
     with np.load(path, allow_pickle=False) as z:
         kind = str(z["kind"])
@@ -45,6 +47,8 @@ def read_sdf_vol_file(filename_pre: str, dtype=torch.float32, device=None) -> Si
     (fileUtils.cpp:16-60): the head holds cols rows z, the origin and the
     resolution; the data is doubles filling x, then y, then z, innermost
     last, i.e. an (X, Y, Z) array, stored here as (Z, Y, X)."""
+    from ..obstacle.sdf import SignedDistanceField
+
     with open(filename_pre + ".vol.head") as fh:
         tokens = fh.read().split()
     cols, rows, nz = int(tokens[0]), int(tokens[1]), int(tokens[2])
@@ -65,6 +69,8 @@ def save_trajectory(path: str, traj: Trajectory) -> None:
 
 
 def load_trajectory(path: str, dtype=torch.float32, device=None) -> Trajectory:
+    from ..planner.problem import Trajectory
+
     f = lambda x: torch.as_tensor(x, dtype=dtype, device=resolve_device(device))  # noqa: E731
     with np.load(path, allow_pickle=False) as z:
         return Trajectory(f(z["pose"]), f(z["vel"]))

@@ -665,12 +665,10 @@ def test_mobile_base_linearize_card_matches_cpu(cuda_device):
 
 
 def _graph_launches():
-    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
-    from gpmp2_tpu_torch.ops.fk_arm import arm_fk_spheres_cuda
-    from gpmp2_tpu_torch.ops.sdf_lookup import sdf_lookup_cuda
+    from gpmp2_tpu_torch.utils import trace
 
-    return (block_tridiag_solve_cuda.launches, arm_fk_spheres_cuda.launches,
-            sdf_lookup_cuda.launches)
+    c = trace.counters()
+    return c["launches.k1"], c["launches.k2"], c["launches.k3"]
 
 
 def _ball_field(dev, dtype):
@@ -825,12 +823,13 @@ def test_partitioned_solve_on_card(cuda_device, dtype, n, P):
     K1) against K1 alone on the same systems."""
     from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
     from gpmp2_tpu_torch.solver import block_tridiag_solve_partitioned
+    from gpmp2_tpu_torch.utils import trace
 
     D, U, b, _ = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
                   for a in random_system(8, n, 14, seed=n, conditioned=True))
-    launches = block_tridiag_solve_cuda.launches
+    launches = trace.counters()["launches.k1"]
     x = block_tridiag_solve_partitioned(D, U, b, P)
-    assert block_tridiag_solve_cuda.launches == launches + 1
+    assert trace.counters()["launches.k1"] == launches + 1
     x_ref = block_tridiag_solve_cuda(D, U, b)
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     assert float((x - x_ref).abs().max()) <= tol * float(x_ref.abs().max())
@@ -866,3 +865,63 @@ def test_ts_sharded_one_rank_nccl(cuda_device):
         assert float((x - x_ref).abs().max()) <= 1e-10 * float(x_ref.abs().max())
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_plan_batch_spans_on_the_profiler_clock(cuda_device):
+    """A WAM plan_batch (B = 256 on the ball field) under a profiler of
+    device activity alone, as the benchmark's traced window runs it,
+    records its spans (gpmp2_tpu_torch/utils/trace.py) with no other
+    switch; every device operation that starts before a stop test ends
+    before that test's span ends (launched before the test's one sync, it
+    is what the sync waits for), which holds only where spans and device
+    events share one clock; and its launches are counted: one K1 an
+    attempt, one K2 and one K3 a linearize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpmp2_tpu_torch.planner import (TrajOptimizerSetting, init_traj_straight_line,
+                                         make_problem, optimizer_params_from_setting,
+                                         plan_batch)
+    from gpmp2_tpu_torch.utils import trace
+
+    f32, B = torch.float32, 256
+    robot, sdf = generate_arm("WAMArm", dtype=f32, device=cuda_device), _ball_field(
+        cuda_device, f32)
+    start = np.array([-0.8, -1.70, 1.64, 1.29, 1.1, -0.106, 2.2])
+    goal = np.array([-0.0, 0.94, 0.0, 1.6, 0.0, -0.919, 1.55])
+    noise = 0.05 * np.random.default_rng(8).normal(size=(2, B, 7))
+    f = lambda a: torch.as_tensor(a, dtype=f32, device=cuda_device)  # noqa: E731
+    setting = TrajOptimizerSetting(dof=7, total_step=10, total_time=2.0, epsilon=0.2,
+                                   cost_sigma=0.02, obs_check_inter=9, opt_type="lm",
+                                   max_iter=50, rel_thresh=1e-2, Qc=np.eye(7))
+    zero = torch.zeros((B, 7), dtype=f32, device=cuda_device)
+    probs = make_problem(robot, sdf, f(start + noise[0]), zero, f(goal + noise[1]), zero,
+                         setting)
+    init = init_traj_straight_line(probs.space, probs.start_pose, probs.end_pose,
+                                   setting.total_step, setting.total_time)
+    params = optimizer_params_from_setting(setting)
+    plan_batch(probs, init, params)
+    torch.cuda.synchronize()
+    trace.enable(None)
+    trace.clear()
+    before = _graph_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        plan_batch(probs, init, params)
+        torch.cuda.synchronize()
+    launched = [b - a for a, b in zip(before, _graph_launches())]
+    spans = trace.spans()
+    trace.clear()
+    (root,) = [s for s in spans if s[0] == "plan_batch"]
+    attempts = root[6]["attempts"]
+    assert attempts > 0 and launched == [attempts, attempts + 1, attempts + 1]
+    tests = sorted((s[1], s[2]) for s in spans if s[0] == "stop_test")
+    assert len(tests) == attempts + 1
+    ops = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+           if "CUDA" in str(e.device_type()) and root[1] <= e.start_ns() <= root[2]]
+    checked = 0
+    for a, b in ops:
+        nxt = next((t for t in tests if t[0] >= a), None)
+        if nxt is not None:
+            assert b <= nxt[1], (a, b, nxt)
+            checked += 1
+    assert checked >= 0.9 * len(ops) > 0

@@ -92,8 +92,7 @@ def main():
     sys.path.insert(0, root)
     import chip_smoke as cs
     from gpmp2_tpu_torch import _build
-    from gpmp2_tpu_torch.ops.btsolve import (batched_block_tridiag_solve,
-                                             block_tridiag_solve_cuda)
+    from gpmp2_tpu_torch.ops.btsolve import batched_block_tridiag_solve
     from gpmp2_tpu_torch.planner import (init_traj_straight_line, make_problem,
                                          plan_batch, traj_linearize)
 
@@ -132,13 +131,13 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-        block_tridiag_solve_cuda.launches = 0
+        cs.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             res = plan_batch(probs, init, params)
             torch.cuda.synchronize()
             pwall = time.perf_counter() - t0
-        k1_launches = block_tridiag_solve_cuda.launches
+        k1_launches = cs.read_launches()["btsolve"]
         ka = prof.key_averages()
         print(json.dumps({
             "B": b, "card": card,
@@ -221,7 +220,6 @@ def profile_mobile(out, card, dev, config):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import chip_smoke as cs
-    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
     from gpmp2_tpu_torch.planner import plan_batch, traj_linearize
     from gpmp2_tpu_torch.planner import problem as problem_mod
 
@@ -263,7 +261,7 @@ def profile_mobile(out, card, dev, config):
 
     for name, fn in originals.items():
         setattr(problem_mod, name, labelled(name, fn))
-    block_tridiag_solve_cuda.launches = 0
+    cs.reset_launches()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -288,7 +286,7 @@ def profile_mobile(out, card, dev, config):
         "jacobian_device_ms": sum(ranges.get(k, 0.0) for k in JACOBIANS),
         "ranges_ms": ranges, "spans_ms": spans,
         "max_iterations": int(res.iterations.max()),
-        "k1_launches": block_tridiag_solve_cuda.launches,
+        "k1_launches": cs.read_launches()["btsolve"],
     }), flush=True)
     table = ka.table(sort_by="self_cuda_time_total", row_limit=30)
     with open(os.path.join(out, f"profile_{config}_b{B}.txt"), "w") as fh:
@@ -302,7 +300,6 @@ def profile_replan(out, card, dev):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import chip_smoke as cs
-    from gpmp2_tpu_torch.ops.btsolve import block_tridiag_solve_cuda
     from gpmp2_tpu_torch.planner import traj_linearize
 
     fleet, one_round = cs.wam_fleet_sessions(dev, cs.main_path_inputs(dev))
@@ -321,7 +318,7 @@ def profile_replan(out, card, dev):
             return update()
 
     fleet.update = labelled_update
-    block_tridiag_solve_cuda.launches = 0
+    cs.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res, _, _ = one_round(4)
@@ -334,7 +331,7 @@ def profile_replan(out, card, dev):
         **device_busy([e for e in ka if e.key != "update"]),
         "update_ms": row.cpu_time_total / 1e3, "update_device_ms": row.device_time_total / 1e3,
         "max_iterations": int(res.iterations.max()),
-        "k1_launches": block_tridiag_solve_cuda.launches,
+        "k1_launches": cs.read_launches()["btsolve"],
     }), flush=True)
     table = ka.table(sort_by="self_cuda_time_total", row_limit=30)
     with open(os.path.join(out, f"profile_replan_b{cs.B_FLEET}.txt"), "w") as fh:
