@@ -22,12 +22,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    OneObstacle 300^2 planar field, 8192 per-problem 64^2 worlds, and
    points on the top faces, outside the grid and NaN; timed at the main
    path's queries as the median of 5 timings, with nvidia-smi's SM and
-   memory clocks before and after;
+   memory clocks before and after; then the assembly kernel against its
+   plain version at the main path's shapes (B = 2048, its straight lines
+   perturbed, every block within 1e-5 of its norm), timed on the straight
+   lines with the L2 flushed and warm beside its bound;
 6. the main path of bench.py through the port's entry points: the WAM
    7-DOF arm, the 300^3 WAMDeskDataset SDF packed on the device, B = 2048
    rejection-sampled collision-free endpoints (numpy seed 0), LM with
    max_iter 50 and rel_thresh 1e-2 in float32, best of 3 after a warm-up;
-   K1, K2 and K3 must each launch during the solve;
+   K1, K2, K3 and the assembly kernel must each launch during the solve,
+   the assembly kernel once a linearize (as often as K2);
 7. agreement with a reference on a small input, in float64 on the card
    (kernels, raw field) and on the CPU (plain versions): four of those
    problems under LM, the same four under Dogleg, and four MobileBaseSE2
@@ -83,10 +87,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    configurations, 160 and 1,440 queries; packed float32 and raw
    float64), timed with their bounds, K1 timed at B = 1 on the graph's
    normal equations; that graph built as the planner's recipe in float64
-   on the card against traj_linearize (err within rtol 1e-12, H and b
-   within atol 1e-9) and its optimize against plan_batch (rel 1e-9, equal
-   iterations); the example's graph in float64, card against CPU (rel
-   1e-6, equal iterations); the example's graph in float32 on the packed
+   on the card against traj_linearize's torch code (err within rtol
+   1e-12, H and b within atol 1e-9), the assembly kernel's linearize
+   against that code (each output within 1e-12 of its largest entry),
+   and its optimize against plan_batch (rel 1e-9, equal iterations); the
+   example's graph in float64, card against CPU (rel 1e-6, equal
+   iterations); the example's graph in float32 on the packed
    field (it must converge with a finite trajectory, and K1, K2 and K3
    must each launch in the timed optimize), timed beside plan_batch at
    B = 1; mobile_arm2_factor_graph.py's graph beside an in-range disc in
@@ -492,6 +498,91 @@ def check_btsolve_indefinite_lane(dev):
             raise AssertionError(f"K1 indefinite lane {dtype}: finite values on the bad lane")
         if not (bool(torch.isfinite(xg).all()) and err <= tol * float(rg.abs().max())):
             raise AssertionError(f"K1 indefinite lane {dtype}: other lanes max|dx| {err}")
+
+
+def assemble_bound(B, n, T, S, d, itemsize=4):
+    """The assembly kernel's bound for B problems of n support states, T
+    interpolated states an interval, S spheres and d dims: K2's Jacobians,
+    K3's four values and mask, the states and the per-lane prior operands
+    read once, H_diag, H_off, b and err written once; the operations of
+    the general factored form (the J rows, each state's Gram upper
+    triangle and gradient, each interval's G_t C_t and the widened block's
+    upper 2 x 2 tiles, two a multiply-add)."""
+    C, m = n + (n - 1) * T, 2 * d
+    nbytes = (B * C * S * ((3 * d + 4) * itemsize + 1)
+              + B * (2 * n + 6) * d * itemsize
+              + B * (n * m * m + (n - 1) * m * m + n * m + 1) * itemsize)
+    macs = B * (C * S * (3 * d + d * (d + 1) // 2 + d)
+                + (n - 1) * T * (4 * d ** 3 + 2 * d * (2 * d + 1) * d))
+    return bound(nbytes, 2 * macs)
+
+
+def assemble_ratio(got, want):
+    """The largest |difference| of the assembly's outputs over each block's
+    norm: the (m, m) blocks of H_diag and H_off, the m-vectors of b, each
+    lane's err."""
+    worst = 0.0
+    for a, w, k in zip(got, want, (2, 2, 1, 0)):
+        diff, w = a.double() - w.double(), w.double()
+        dn, wn = ((diff.flatten(-k).norm(dim=-1), w.flatten(-k).norm(dim=-1)) if k
+                  else (diff.abs(), w.abs()))
+        if bool((dn > 0).any()):
+            worst = max(worst, float((dn / wn).max()))
+    return worst
+
+
+def check_assemble(dev, inputs):
+    """The assembly kernel against its plain version (float64 on the same
+    rounded operands; every block within 1e-5 of its norm) at the main
+    path's shapes, on its straight lines perturbed by 0.1 N(0, 1) (on the
+    straight line the GP residual cancels to rounding); then timed on the
+    straight lines, as the first linearize finds them, with the L2 flushed
+    (the linearize runs it after K3, which reads the 864 MB table) and
+    warm, beside its bound and its plain version."""
+    import torch
+    from gpmp2_tpu_torch.ops.assemble import assemble_vec_cuda, assemble_vec_torch
+    from gpmp2_tpu_torch.planner import Trajectory, init_traj_straight_line
+    from gpmp2_tpu_torch.planner.batch import make_problem
+    from gpmp2_tpu_torch.planner.problem import (_assembly_operands, _collision_confs,
+                                                 _spheres_and_jac)
+
+    robot, sdf, setting, _, starts, goals = inputs
+    z = torch.zeros_like(starts)
+    probs = make_problem(robot, sdf, starts, z, goals, z, setting, sdf_pack=False)
+    line = init_traj_straight_line(probs.space, starts, goals, setting.total_step,
+                                   setting.total_time)
+    g = torch.Generator(device=dev).manual_seed(0)
+    bent = Trajectory(*(t + 0.1 * torch.randn(t.shape, generator=g, device=dev) for t in line))
+
+    def operands(traj):
+        centers, Jc = _spheres_and_jac(probs.robot, _collision_confs(probs, *traj))
+        return _assembly_operands(probs, *traj, centers, Jc)
+
+    ops = operands(bent)
+    got = assemble_vec_cuda(*ops)
+    ref = assemble_vec_torch(*(t.double() if torch.is_tensor(t) and t.is_floating_point()
+                               else t for t in ops))
+    ratio = assemble_ratio(got, ref)
+    log(f"assembly: main path, perturbed, f32 against the plain version in f64: worst "
+        f"|d| / block norm {ratio:.3e}")
+    if not ratio <= 1e-5:
+        raise AssertionError(f"assembly kernel: |d| / block norm {ratio} > 1e-5")
+    ops = operands(line)
+    active = float((ops[7] & (ops[3] <= ops[8])).float().mean())
+    dev_ms = device_ms(lambda: assemble_vec_cuda(*ops), flush=True)
+    warm_ms = device_ms(lambda: assemble_vec_cuda(*ops))
+    call_ms = cuda_ms(lambda: assemble_vec_cuda(*ops), 20)
+    plain_ms = cuda_ms(lambda: assemble_vec_torch(*ops), 5)
+    B, n, d = line.pose.shape
+    S, T = ops[2].shape[2], ops[10].shape[0]
+    bound_ms, bound_by = assemble_bound(B, n, T, S, d)
+    log(f"assembly time at B={B} f32 (straight lines, {active:.1%} of spheres active): "
+        f"kernel device time L2 flushed {_spread(dev_ms)}, warm {_spread(warm_ms)}, call "
+        f"rate {call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {bound_ms / dev_ms[0]:.1%} of it flushed)")
+    return {"max_block_ratio": ratio, "ms": dev_ms[0], "ms_warm": warm_ms[0],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "call_rate_ms": call_ms, "active_share": active}
 
 
 def check_fk_arm(dev):
@@ -939,13 +1030,14 @@ def reset_launches():
 
 
 def read_launches():
-    """K1-K3's launches since `reset_launches`, from the port's counters
+    """K1-K3's and the assembly kernel's launches since `reset_launches`,
+    from the port's counters
     (gpmp2_tpu_torch/utils/trace.py)."""
     from gpmp2_tpu_torch.utils import trace
 
     c = trace.counters()
     return {"btsolve": c["launches.k1"], "fk_arm": c["launches.k2"],
-            "sdf_lookup": c["launches.k3"]}
+            "sdf_lookup": c["launches.k3"], "assemble": c["launches.assemble"]}
 
 
 def path_solver(inputs, params, fetch=False):
@@ -998,8 +1090,9 @@ class MainPathRun(NamedTuple):
 def timed_main_path(name, solve, B=None, repeats=None):
     """The main path's protocol: a warm-up, then `repeats` (default
     REPEATS) timed solves of B (default B_MAIN) problems, each of which
-    must launch K1, K2 and K3 on the card (on the CPU the wrappers run
-    their plain versions and count nothing)."""
+    must launch K1, K2, K3 and the assembly kernel on the card, the last
+    once a linearize, as often as K2 (on the CPU the wrappers run their
+    plain versions and count nothing)."""
     B = B_MAIN if B is None else B
     t0 = time.perf_counter()
     solve(B)  # warm-up
@@ -1013,6 +1106,9 @@ def timed_main_path(name, solve, B=None, repeats=None):
         launches = read_launches()
         if solve.device.type == "cuda" and min(launches.values()) == 0:
             raise AssertionError(f"a kernel was not launched by the {name}: {launches}")
+        if launches["assemble"] != launches["fk_arm"]:
+            raise AssertionError(f"the {name} did not launch the assembly kernel once a "
+                                 f"linearize: {launches}")
     return MainPathRun(times, res, cc, launches, warmup_s)
 
 
@@ -2123,8 +2219,12 @@ def check_graph_kernels(dev, robot, sdf):
 def graph_vs_planner(dev, inputs):
     """The WAM graph of the planner's recipe in float64 on the card against
     the port's planner on the same problem (make_problem, B = 1, the raw
-    field): linearize at the straight line, err within rtol 1e-12 and
-    H_diag, H_off, b within atol 1e-9; FactorGraph.optimize and
+    field): linearize at the straight line against traj_linearize's torch
+    code (the assembly kernel's route off), err within rtol 1e-12 and
+    H_diag, H_off, b within atol 1e-9, and the assembly kernel's
+    linearize against that torch code, each output within 1e-12 of its
+    largest entry (on the straight line the GP residual cancels to
+    rounding, so a block's own norm is no scale); FactorGraph.optimize and
     plan_batch (optimize_batch over traj_linearize) with the same LM
     parameters end within rel 1e-9 of each other, with equal iterations.
     Then the example's graph in float64, card against CPU: final error
@@ -2148,7 +2248,22 @@ def graph_vs_planner(dev, inputs):
             z = torch.zeros_like(s)[None]
             probs = make_problem(robot, field, s[None], z, e[None], z, setting, sdf_pack=False)
             batched = Trajectory(line.pose[None], line.vel[None])
-            got, ref = g.linearize(line), traj_linearize(probs, batched)
+            from gpmp2_tpu_torch.ops import assemble
+            route = assemble.route
+            assemble.route = lambda *args: False
+            try:
+                ref = traj_linearize(probs, batched)
+            finally:
+                assemble.route = route
+            kernel = traj_linearize(probs, batched)
+            scaled = {part: float((a - r).abs().max() / r.abs().max())
+                      for part, a, r in zip(("H_diag", "H_off", "b", "err"), kernel, ref)}
+            log(f"WAM graph: traj_linearize through the assembly kernel against its torch "
+                f"code (f64, card): max|d| / max|ref| {scaled}")
+            if not max(scaled.values()) <= 1e-12:
+                raise AssertionError(f"WAM graph: assembly kernel against its torch code "
+                                     f"{scaled}")
+            got = g.linearize(line)
             rel = abs(float(got[3]) - float(ref[3][0])) / float(ref[3][0])
             worst = {part: float((a - r[0]).abs().max())
                      for part, a, r in zip(("H_diag", "H_off", "b"), got, ref)}
@@ -2212,7 +2327,7 @@ def wam_graph_row(dev, card, inputs, packed):
             raise AssertionError(f"WAM graph f32: non-finite final {name}")
     if not bool(res.converged) or bool(res.gave_up):
         raise AssertionError(f"WAM graph f32 did not converge: {res.iterations} iterations")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("btsolve", "fk_arm", "sdf_lookup")) == 0:
         raise AssertionError(f"WAM graph f32: a kernel was not launched: {launches}")
     batched = Trajectory(line.pose[None], line.vel[None])
     res_p, ms_p, launches_p = timed(lambda: plan_batch(probs, batched, params))
@@ -3290,6 +3405,7 @@ def main():
     robot, sdf, setting, _, starts, goals = inputs
     wam_pts = main_path_queries(robot, sdf, setting, starts, goals)
     k3 = check_sdf_lookup(dev, sdf, wam_pts)
+    assembly = check_assemble(dev, inputs)
     log(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
 
     # 6. main path
@@ -3356,6 +3472,9 @@ def main():
                      "profile_dma6.py:61-166, profile_dma7.py:58, profile_dma8.py:68,146, "
                      "profile_dma9.py:78)",
          "launches": launches["sdf_lookup"], **k3},
+        {"name": "assemble_vec", "route": "cuda",
+         "source": "gpmp2_tpu_torch/csrc/assemble_vec.cu", "replaces": None,
+         "launches": launches["assemble"], **assembly},
     ]
     log("recorded times, not measured in this run: "
         + ", ".join(f"{name} {ms} ms" for name, ms in RECORDED_PREV_MS.items())

@@ -49,6 +49,10 @@ _SIGNATURES = {
     # screen table, coarse cell, screen shape (3), scratch, stream
     "gpmp2_sdf_lookup": ([_P, _I] + [_P] * 5 + [_L] * 2 + [_I] * 8 + [_P, _L] + [_P] * 2
                          + [_I] * 3 + [_P] * 2),
+    # operand pointers (26), B, n, d, S, T, goal_prior, f64, stream
+    "gpmp2_assemble_vec": [_P] + [_I] * 7 + [_P],
+    # d, S, T, f64, out {states a chunk, threads, shared bytes}
+    "gpmp2_assemble_vec_plan": [_I] * 4 + [_IP],
 }
 
 _lock = threading.Lock()

@@ -68,6 +68,7 @@ from ..kinematics.robot import (RobotModel, points_and_jac, sphere_centers_and_j
                                 sphere_centers_world)
 from ..obstacle.factors import hinge_loss, self_collision_terms
 from ..obstacle.sdf import PlanarSDF, SignedDistanceField, sdf_lookup_points
+from ..ops import assemble
 from ..ops.fk_arm import arm_fk_spheres_batched
 from ..solver.linearize import (jtwj_diag, jtwj_full, jtwr_diag, jtwr_full,
                                 quad_err_diag, quad_err_full)
@@ -193,6 +194,20 @@ class TrajProblem:
     def interp(self) -> InterpCoeffs:
         """Lambda/Psi for every tau: (inter, 2d, 2d) each."""
         return interp_coeffs(self.Qc, self.dt, self.taus)
+
+    @functools.cached_property
+    def interp_coeff(self) -> torch.Tensor:
+        """[Lambda | Psi][:d] for every tau, (inter, d, 4d): on a vector
+        space d conf(tau) / d [z_i; z_i+1], the same for every interval."""
+        d = self.space.dim
+        return torch.cat([self.interp.lam[:, :d, :], self.interp.psi[:, :d, :]], dim=-1)
+
+    @functools.cached_property
+    def gp_jacobians(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The vector-space GP prior's constant Jacobians (J1, J2), (2d, 2d)
+        each."""
+        return gp_prior_jacobians_linear(self.space.dim, self.dt, dtype=self.dt.dtype,
+                                         device=self.dt.device)
 
 
 class _SE2Block(NamedTuple):
@@ -601,19 +616,37 @@ def traj_error(prob: TrajProblem, traj: Trajectory):
     return err
 
 
+def _assembly_operands(prob: TrajProblem, pose, vel, centers, Jc):
+    """The assembly kernel's operands (ops/assemble.py) of a vector-space
+    problem: the states, the spheres' Jacobians, the lookup of their
+    centres (K3, screened with eps_total as `_obs_res_and_jac` screens
+    it), and the priors' means, weights and constants."""
+    eps_total = prob.robot.sphere_radii + prob.eps
+    dist, gx, gy, *gz, ok = sdf_lookup_points(prob.sdf, centers, eps_total)
+    J1, J2 = prob.gp_jacobians
+    return (pose.contiguous(), vel.contiguous(), Jc.contiguous(), dist, gx, gy,
+            gz[0] if gz else None, ok, eps_total, prob.obs_w, prob.interp_coeff, J1, J2,
+            prob.gp_precision, prob.start_pose, prob.start_vel, prob.pose_prior_w,
+            prob.vel_prior_w, prob.end_pose, prob.end_vel, prob.goal_pose_w,
+            prob.goal_vel_w, not prob.goal_region)
+
+
 def traj_linearize(prob: TrajProblem, traj: Trajectory):
     """Gauss-Newton normal equations of a batch: H_diag (B, n, m, m),
     H_off (B, n-1, m, m), b (B, n, m) and error (B,), with H = J^T W J,
-    b = -J^T W r, error = 0.5 r^T W r."""
+    b = -J^T W r, error = 0.5 r^T W r. On a vector space on the card
+    (`ops.assemble.route`) the boundary priors, the GP prior and the
+    obstacle factors come from one launch of the assembly kernel; the
+    torch code below is its twin, the CPU path and the Lie spaces' route."""
     space = prob.space
     pose, vel = traj.pose, traj.vel
     B, n, d = pose.shape
     m = 2 * d
     kw = dict(dtype=pose.dtype, device=pose.device)
-    H_diag = torch.zeros((B, n, m, m), **kw)
-    H_off = torch.zeros((B, n - 1, m, m), **kw)
-    b = torch.zeros((B, n, m), **kw)
-    err = torch.zeros((B,), **kw)
+    # one FK pass over the support and interpolated states (K2 for arms)
+    T = prob.taus.shape[0]
+    all_confs = _collision_confs(prob, pose, vel)
+    centers, Jc = _spheres_and_jac(prob.robot, all_confs)
 
     def add_pose_factor(idx, r, J, W):
         """A factor on the pose tangent of state(s) idx: r (B, ..., R),
@@ -623,58 +656,67 @@ def traj_linearize(prob: TrajProblem, traj: Trajectory):
         H_diag[:, idx, :d, :d] += jtwj_diag(J, W, J)
         b[:, idx, :d] -= jtwr_diag(J, W, r)
 
-    # ---- boundary priors: identity Jacobians on a vector space, the
-    # Jacobian of local(mean, retract(x, .)) on the Lie spaces -----------
-    for idx, mean, rp, wp, rv, wv in _boundary_residuals(prob, pose, vel):
-        if space.is_vector:
-            err = err + quad_err_diag(wp, rp)
-            H_diag[:, idx, :d, :d] += torch.diag_embed(wp)
-            b[:, idx, :d] -= wp * rp
-        else:
-            add_pose_factor(idx, rp, _prior_pose_jacobian(space, mean, pose[:, idx]), wp)
-        err = err + quad_err_diag(wv, rv)
-        H_diag[:, idx, d:, d:] += torch.diag_embed(wv)
-        b[:, idx, d:] -= wv * rv
-    if prob.goal_region:
-        add_pose_factor(prob.N, *_goal_res_and_jac(prob, pose[:, prob.N]), prob.goal_w)
-
-    # ---- GP prior per interval: constant Jacobians on a vector space ----
-    W_gp = prob.gp_precision
-    if space.is_vector:
-        gp_r = _gp_residual(prob, pose, vel)
-        J1, J2 = gp_prior_jacobians_linear(d, prob.dt, **kw)
+    if assemble.route(space.is_vector, pose.is_cuda, pose.dtype, d, Jc.shape[-3], T):
+        H_diag, H_off, b, err = assemble.assemble_vec_cuda(
+            *_assembly_operands(prob, pose, vel, centers, Jc))
+        if prob.goal_region:
+            add_pose_factor(prob.N, *_goal_res_and_jac(prob, pose[:, prob.N]), prob.goal_w)
     else:
-        gp_r, J1, J2 = _lie_gp_jacobians(prob, pose, vel)
-    err = err + quad_err_full(W_gp, gp_r)
-    H_diag[:, :-1] += jtwj_full(J1, W_gp, J1)
-    H_diag[:, 1:] += jtwj_full(J2, W_gp, J2)
-    H_off += jtwj_full(J1, W_gp, J2)
-    b[:, :-1] -= jtwr_full(J1, W_gp, gp_r)
-    b[:, 1:] -= jtwr_full(J2, W_gp, gp_r)
+        H_diag = torch.zeros((B, n, m, m), **kw)
+        H_off = torch.zeros((B, n - 1, m, m), **kw)
+        b = torch.zeros((B, n, m), **kw)
+        err = torch.zeros((B,), **kw)
 
-    # ---- obstacle factors: support + interpolated states, one FK pass and
-    # one SDF lookup ------------------------------------------------------
-    T = prob.taus.shape[0]
-    all_confs = _collision_confs(prob, pose, vel)
-    centers, Jc = _spheres_and_jac(prob.robot, all_confs)
-    r_all, J_all = _obs_res_and_jac(prob.robot, prob.sdf, prob.eps, centers, Jc)
-    S = r_all.shape[-1]
-    add_pose_factor(slice(None), r_all[:, :n], J_all[:, :n], prob.obs_w)
+        # ---- boundary priors: identity Jacobians on a vector space, the
+        # Jacobian of local(mean, retract(x, .)) on the Lie spaces -------
+        for idx, mean, rp, wp, rv, wv in _boundary_residuals(prob, pose, vel):
+            if space.is_vector:
+                err = err + quad_err_diag(wp, rp)
+                H_diag[:, idx, :d, :d] += torch.diag_embed(wp)
+                b[:, idx, :d] -= wp * rp
+            else:
+                add_pose_factor(idx, rp, _prior_pose_jacobian(space, mean, pose[:, idx]), wp)
+            err = err + quad_err_diag(wv, rv)
+            H_diag[:, idx, d:, d:] += torch.diag_embed(wv)
+            b[:, idx, d:] -= wv * rv
+        if prob.goal_region:
+            add_pose_factor(prob.N, *_goal_res_and_jac(prob, pose[:, prob.N]), prob.goal_w)
 
-    if T > 0:
+        # ---- GP prior per interval: constant Jacobians on a vector space
+        W_gp = prob.gp_precision
         if space.is_vector:
-            coeff = torch.cat([prob.interp.lam[:, :d, :], prob.interp.psi[:, :d, :]], dim=-1)
+            gp_r = _gp_residual(prob, pose, vel)
+            J1, J2 = prob.gp_jacobians
         else:
-            coeff = _interp_pose_jacobians(prob, pose, vel,
-                                           all_confs[:, n:].reshape(B, n - 1, T, d))
-        rs = r_all[:, n:].reshape(B, n - 1, T, S)
-        Hfull, gfull = _interp_gram(prob, coeff, rs, J_all[:, n:].reshape(B, n - 1, T, S, d))
-        err = err + quad_err_diag(prob.obs_w, rs)
-        H_diag[:, :-1] += Hfull[..., :m, :m]
-        H_diag[:, 1:] += Hfull[..., m:, m:]
-        H_off += Hfull[..., :m, m:]
-        b[:, :-1] -= gfull[..., :m]
-        b[:, 1:] -= gfull[..., m:]
+            gp_r, J1, J2 = _lie_gp_jacobians(prob, pose, vel)
+        err = err + quad_err_full(W_gp, gp_r)
+        H_diag[:, :-1] += jtwj_full(J1, W_gp, J1)
+        H_diag[:, 1:] += jtwj_full(J2, W_gp, J2)
+        H_off += jtwj_full(J1, W_gp, J2)
+        b[:, :-1] -= jtwr_full(J1, W_gp, gp_r)
+        b[:, 1:] -= jtwr_full(J2, W_gp, gp_r)
+
+        # ---- obstacle factors: support + interpolated states, one SDF
+        # lookup ----------------------------------------------------------
+        r_all, J_all = _obs_res_and_jac(prob.robot, prob.sdf, prob.eps, centers, Jc)
+        S = r_all.shape[-1]
+        add_pose_factor(slice(None), r_all[:, :n], J_all[:, :n], prob.obs_w)
+
+        if T > 0:
+            if space.is_vector:
+                coeff = prob.interp_coeff
+            else:
+                coeff = _interp_pose_jacobians(prob, pose, vel,
+                                               all_confs[:, n:].reshape(B, n - 1, T, d))
+            rs = r_all[:, n:].reshape(B, n - 1, T, S)
+            Hfull, gfull = _interp_gram(prob, coeff, rs,
+                                        J_all[:, n:].reshape(B, n - 1, T, S, d))
+            err = err + quad_err_diag(prob.obs_w, rs)
+            H_diag[:, :-1] += Hfull[..., :m, :m]
+            H_diag[:, 1:] += Hfull[..., m:, m:]
+            H_off += Hfull[..., :m, m:]
+            b[:, :-1] -= gfull[..., :m]
+            b[:, 1:] -= gfull[..., m:]
 
     # ---- joint / velocity limits: diagonal -1/0/+1 Jacobians ------------
     eye_d = torch.eye(d, **kw)

@@ -20,9 +20,10 @@ it. The recorder follows one thread: a `plan_batch` started on another
 thread while a call is recorded joins that call.
 
 Counters are always on: integers under a name, such as `launches.k1`,
-`launches.k2` and `launches.k3`, the launches of the hand-written CUDA
-kernels K1 (ops/btsolve.py), K2 (ops/fk_arm.py) and K3
-(ops/sdf_lookup.py).
+`launches.k2`, `launches.k3` and `launches.assemble`, the launches of the
+hand-written CUDA kernels K1 (ops/btsolve.py), K2 (ops/fk_arm.py), K3
+(ops/sdf_lookup.py) and the assembly kernel (ops/assemble.py), which
+counts how often a linearize takes its route.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ __all__ = ["CAPACITY", "Call", "begin", "clear", "count", "counters", "current",
            "enable", "end", "reset_counters", "spans"]
 
 CAPACITY = 1 << 20
-KERNEL_COUNTERS = ("launches.k1", "launches.k2", "launches.k3")
+KERNEL_COUNTERS = ("launches.k1", "launches.k2", "launches.k3", "launches.assemble")
 
 _mode = {"1": True, "0": False}.get(os.environ.get("GPMP2_TORCH_TRACE", ""))
 _env_mode = _mode

@@ -925,3 +925,320 @@ def test_plan_batch_spans_on_the_profiler_clock(cuda_device):
             assert b <= nxt[1], (a, b, nxt)
             checked += 1
     assert checked >= 0.9 * len(ops) > 0
+
+
+def _block_ratio(got, want, rtol):
+    """Each output of the assembly against its twin: the (m, m) blocks of
+    H_diag and H_off, the m-vectors of b and each lane's err, every block's
+    |difference| within rtol of its norm; returns the worst ratio."""
+    worst = 0.0
+    for name, a, w, k in zip(("H_diag", "H_off", "b", "err"), got, want, (2, 2, 1, 0)):
+        diff = (a.double() - w.double())
+        if k:
+            dn, wn = diff.flatten(-k).norm(dim=-1), w.double().flatten(-k).norm(dim=-1)
+        else:
+            dn, wn = diff.abs(), w.double().abs()
+        assert bool(torch.isfinite(a).all()), name
+        assert bool((dn <= rtol * wn).all()), (name, float((dn / wn.clamp_min(1e-300)).max()))
+        worst = max(worst, float((dn / wn.clamp_min(1e-300)).max()))
+    return worst
+
+
+def _assembly_operands(dev, dtype, B, n, d, S, T, planar, seed, kron=False):
+    """Random operands of the assembly kernel: lane 0's spheres all
+    inactive (beyond eps_total), lane 1's half out of range; every other
+    sphere in range with dist about eps_total. With `kron` each C_t is
+    [a0 I | a1 I | a2 I | a3 I], the form of Qc = c I."""
+    rng = np.random.default_rng(seed)
+    C, m = n + (n - 1) * T, 2 * d
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    eps = f(rng.uniform(0.1, 0.3, S))
+    dist = f(rng.uniform(-0.2, 0.4, (B, C, S)))
+    dist[0] = 1.0
+    ok = torch.ones((B, C, S), dtype=torch.bool, device=dev)
+    if B > 1:
+        ok[1, :, ::2] = False
+    A = rng.normal(size=(m, m))
+    coeff = (np.einsum("tk,jl->tjkl", rng.normal(size=(T, 4)), np.eye(d)).reshape(T, d, 4 * d)
+             if kron else rng.normal(size=(T, d, 2 * m)))
+    coeff = f(coeff)
+    J1 = np.eye(m)
+    J1[:d, d:] = 0.2 * np.eye(d)
+    return (f(rng.normal(size=(B, n, d))), f(rng.normal(size=(B, n, d))),
+            f(rng.normal(size=(B, C, S, 3, d))), dist, f(rng.normal(size=(B, C, S))),
+            f(rng.normal(size=(B, C, S))), None if planar else f(rng.normal(size=(B, C, S))),
+            ok, eps, f(400.0), coeff, f(J1), f(-np.eye(m)), f(A @ A.T + m * np.eye(m)),
+            f(rng.normal(size=(B, d))), f(rng.normal(size=(B, d))), f(rng.uniform(1, 9, d)),
+            f(rng.uniform(1, 9, d)), f(rng.normal(size=(B, d))), f(rng.normal(size=(B, d))),
+            f(rng.uniform(1, 9, (B, d))), f(rng.uniform(1, 9, (B, d))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d,S,T,n,B,planar,goal_prior,kron", [
+    (7, 16, 9, 11, 33, False, True, False),   # the WAM's shapes
+    (7, 16, 9, 11, 33, False, True, True),    # ... with Qc = c I's coefficients
+    (1, 1, 0, 2, 5, True, False, False),      # one dim, one sphere, no interpolation
+    (2, 1, 5, 7, 5, True, True, True),        # the point robot: 4-byte rows, no mask words
+    (3, 13, 3, 5, 5, True, True, False),      # a planar arm, S not a multiple of 4
+    (8, 64, 16, 4, 3, False, True, False),    # the edge of the built range
+    (6, 34, 16, 33, 2, False, False, True),   # a long horizon, chunks within a unit
+])
+def test_assemble_kernel_random_operands(cuda_device, dtype, d, S, T, n, B, planar,
+                                         goal_prior, kron):
+    """The assembly kernel against its plain version (float64, on the same
+    rounded operands): every block within 1e-5 of its norm in float32,
+    1e-12 in float64; both forms of the interpolation coefficients."""
+    from gpmp2_tpu_torch.ops.assemble import assemble_vec_cuda, assemble_vec_torch
+
+    ops = _assembly_operands(cuda_device, dtype, B, n, d, S, T, planar, seed=d * 100 + S,
+                             kron=kron)
+    got = assemble_vec_cuda(*ops, goal_prior=goal_prior)
+    ref = assemble_vec_torch(*(t.double() if t is not None and t.is_floating_point() else t
+                               for t in ops), goal_prior=goal_prior)
+    _block_ratio(got, ref, 1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_assemble_launch_plan(cuda_device, dtype):
+    """The WAM's unit (T + 1 = 10 states) is one chunk in float32; every
+    plan of the built range fits a block; outside it the plan raises."""
+    from gpmp2_tpu_torch.ops.assemble import launch_plan
+
+    kc, threads, smem = launch_plan(7, 16, 9, dtype)
+    assert threads == 256 and smem <= 96 * 1024
+    assert kc == 10 or dtype == torch.float64
+    for d, S, T in ((1, 1, 0), (8, 64, 16), (8, 1, 16), (1, 64, 0)):
+        assert launch_plan(d, S, T, dtype)[2] <= 232448
+    for bad in ((9, 16, 9), (7, 65, 9), (7, 16, 17), (0, 16, 9)):
+        with pytest.raises(ValueError):
+            launch_plan(*bad, dtype)
+
+
+def _route(monkeypatch, on):
+    """Force traj_linearize's choice of the assembly kernel."""
+    from gpmp2_tpu_torch.ops import assemble
+
+    real = getattr(assemble.route, "real", assemble.route)
+
+    def forced(*args):
+        return on and real(*args)
+    forced.real = real
+    monkeypatch.setattr(assemble, "route", forced)
+
+
+def _wam_problems(dev, dtype, B, seed=8, **kw):
+    from gpmp2_tpu_torch.planner import (TrajOptimizerSetting, init_traj_straight_line,
+                                         make_problem)
+
+    robot = generate_arm("WAMArm", dtype=dtype, device=dev)
+    noise = 0.05 * np.random.default_rng(seed).normal(size=(2, B, 7))
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    start = np.array([-0.8, -1.70, 1.64, 1.29, 1.1, -0.106, 2.2])
+    goal = np.array([-0.0, 0.94, 0.0, 1.6, 0.0, -0.919, 1.55])
+    setting = TrajOptimizerSetting(dof=7, total_step=10, total_time=2.0, epsilon=0.2,
+                                   cost_sigma=0.02, obs_check_inter=9, opt_type="lm",
+                                   max_iter=50, rel_thresh=1e-2, Qc=np.eye(7), **kw)
+    zero = torch.zeros((B, 7), dtype=dtype, device=dev)
+    probs = make_problem(robot, _ball_field(dev, dtype), f(start + noise[0]), zero,
+                         f(goal + noise[1]), zero, setting)
+    init = init_traj_straight_line(probs.space, probs.start_pose, probs.end_pose,
+                                   setting.total_step, setting.total_time)
+    return probs, init, setting
+
+
+def _perturbed(traj, seed):
+    from gpmp2_tpu_torch.planner import Trajectory
+
+    g = torch.Generator().manual_seed(seed)
+    noise = [0.1 * torch.randn(traj.pose.shape, generator=g, dtype=torch.float64)
+             for _ in range(2)]
+    return Trajectory(traj.pose + noise[0].to(traj.pose), traj.vel + noise[1].to(traj.vel))
+
+
+def _point_problems(dev, dtype):
+    """Point robots beside a block on a 4 m field (5 cm cells): lane 0 far
+    from the block (every sphere inactive), lane 1 leaving the field (its
+    last states out of range)."""
+    from gpmp2_tpu_torch.datasets import planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.kinematics import PointRobotFK, make_robot_model
+    from gpmp2_tpu_torch.planner import (TrajOptimizerSetting, init_traj_straight_line,
+                                         make_problem)
+
+    occ = np.zeros((80, 80))
+    occ[35:55, 30:50] = 1.0
+    sdf = planar_sdf_from_occupancy(np.array([-2.0, -2.0]), 0.05, occ, dtype=dtype, device=dev)
+    robot = make_robot_model(PointRobotFK(), [(0, 0.1, (0.0, 0.0, 0.0))], dtype=dtype,
+                             device=dev)
+    setting = TrajOptimizerSetting(dof=2, total_step=10, total_time=10.0, epsilon=0.2,
+                                   cost_sigma=0.1, obs_check_inter=3, opt_type="lm",
+                                   Qc=np.eye(2))
+    rng = np.random.default_rng(4)
+    start = np.array([-1.5, -1.2]) + 0.2 * rng.normal(size=(16, 2))
+    goal = np.array([1.5, 1.4]) + 0.2 * rng.normal(size=(16, 2))
+    start[0], goal[0] = (-1.8, 1.5), (-1.5, 1.8)
+    start[1], goal[1] = (1.5, 1.5), (2.5, 2.5)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    zero = torch.zeros((16, 2), dtype=dtype, device=dev)
+    probs = make_problem(robot, sdf, f(start), zero, f(goal), zero, setting)
+    return probs, init_traj_straight_line(probs.space, probs.start_pose, probs.end_pose, 10,
+                                          10.0)
+
+
+def _planar_arm_problems(dev, dtype):
+    from gpmp2_tpu_torch.datasets import planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.planner import (TrajOptimizerSetting, init_traj_straight_line,
+                                         make_problem)
+
+    occ = np.zeros((60, 60))
+    occ[20:30, 35:45] = 1.0
+    sdf = planar_sdf_from_occupancy(np.array([-3.0, -3.0]), 0.1, occ, dtype=dtype, device=dev)
+    robot = generate_arm("SimpleThreeLinksArm", dtype=dtype, device=dev)
+    setting = TrajOptimizerSetting(dof=3, total_step=10, total_time=5.0, epsilon=0.2,
+                                   cost_sigma=0.05, obs_check_inter=5, opt_type="lm",
+                                   Qc=np.eye(3))
+    rng = np.random.default_rng(6)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    start = f(np.array([-0.5, 0.3, 0.4]) + 0.1 * rng.normal(size=(64, 3)))
+    goal = f(np.array([1.2, -0.4, 0.2]) + 0.1 * rng.normal(size=(64, 3)))
+    zero = torch.zeros((64, 3), dtype=dtype, device=dev)
+    probs = make_problem(robot, sdf, start, zero, goal, zero, setting)
+    return probs, init_traj_straight_line(probs.space, start, goal, 10, 5.0)
+
+
+def _wam_with_limits_and_slots(dev, dtype, B):
+    """WAM problems with joint and velocity limits and two replanning slots
+    a lane (pins at states 3 and 7, one of them weighted zero)."""
+    from gpmp2_tpu_torch.planner import make_problem
+
+    probs, init, setting = _wam_problems(dev, dtype, B, flag_pos_limit=True,
+                                         flag_vel_limit=True,
+                                         joint_pos_limits_down=-2.0 * np.ones(7),
+                                         joint_pos_limits_up=2.0 * np.ones(7),
+                                         vel_limits=1.5 * np.ones(7))
+    probs = make_problem(probs.robot, probs.sdf, probs.start_pose, probs.start_vel,
+                         probs.end_pose, probs.end_vel, setting, num_extra=2)
+    idx = torch.tensor([3, 7], device=dev).expand(B, 2).contiguous()
+    w = torch.full((B, 2, 7), 50.0, dtype=dtype, device=dev)
+    w[:, 1, ::2] = 0.0
+    probs = dataclasses.replace(probs, extra_idx=idx, extra_pose=init.pose[:, [3, 7]] + 0.05,
+                                extra_vel=init.vel[:, [3, 7]], extra_pose_w=w,
+                                extra_vel_w=w.clone())
+    return probs, init
+
+
+ROUTE_CASES = {
+    "wam_b1": lambda dev, dt: _wam_problems(dev, dt, 1)[:2],
+    "wam_b2048": lambda dev, dt: _wam_problems(dev, dt, 2048)[:2],
+    "planar_arm": _planar_arm_problems,
+    "point_robot": _point_problems,
+    "wam_limits_slots": lambda dev, dt: _wam_with_limits_and_slots(dev, dt, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_assemble_route_matches_twin(cuda_device, monkeypatch, case, dtype):
+    """traj_linearize through the assembly kernel against its torch code on
+    the card, on the same K2 and K3 outputs, at a perturbed straight line:
+    H_diag, H_off, b and err each within 1e-5 of each block's norm in
+    float32, 1e-12 in float64; the kernel launches once."""
+    from gpmp2_tpu_torch.planner import traj_linearize
+    from gpmp2_tpu_torch.utils import trace
+
+    probs, init = ROUTE_CASES[case](cuda_device, dtype)
+    traj = _perturbed(init, seed=3)
+    _route(monkeypatch, False)
+    want = traj_linearize(probs, traj)
+    _route(monkeypatch, True)
+    before = trace.counters()["launches.assemble"]
+    got = traj_linearize(probs, traj)
+    assert trace.counters()["launches.assemble"] == before + 1
+    _block_ratio(got, want, 1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.cuda
+def test_assemble_kernel_bit_equal_runs(cuda_device):
+    """Two launches on the WAM's main-path shapes (B = 2048) agree bit for
+    bit: each output is written once, with no atomics."""
+    from gpmp2_tpu_torch.planner import traj_linearize
+
+    probs, init, _ = _wam_problems(cuda_device, torch.float32, 2048)
+    traj = _perturbed(init, seed=5)
+    a, b = traj_linearize(probs, traj), traj_linearize(probs, traj)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_assemble_launch_counts(cuda_device):
+    """`launches.assemble` counts one launch a linearize on a vector space
+    (a WAM plan_batch: the attempts plus the initial linearize, as K2 and
+    K3; K1 once an attempt) and none on SE(2) (a MobileBaseSE2 linearize,
+    which still launches K3)."""
+    from gpmp2_tpu_torch.datasets import generate_2d_dataset, planar_sdf_from_occupancy
+    from gpmp2_tpu_torch.planner import (TrajOptimizerSetting, init_traj_straight_line,
+                                         make_problem, optimizer_params_from_setting,
+                                         plan_batch, traj_linearize)
+    from gpmp2_tpu_torch.robots import generate_mobile_base
+    from gpmp2_tpu_torch.utils import trace
+
+    probs, init, setting = _wam_problems(cuda_device, torch.float32, 256)
+    params = optimizer_params_from_setting(setting)
+    trace.reset_counters()
+    plan_batch(probs, init, params)
+    c = trace.counters()
+    assert c["launches.k1"] > 0
+    assert c["launches.assemble"] == c["launches.k2"] == c["launches.k3"] == c["launches.k1"] + 1
+
+    ds = generate_2d_dataset("MobileMap1")
+    sdf = planar_sdf_from_occupancy(ds.origin, ds.cell_size, ds.map, dtype=torch.float32,
+                                    device=cuda_device)
+    se2 = TrajOptimizerSetting(dof=3, total_step=15, total_time=15.0, cost_sigma=0.01,
+                               obs_check_inter=3, opt_type="lm", Qc=np.eye(3))
+    s = torch.tensor([[-3.0, -3.0, 0.0]] * 8, device=cuda_device)
+    g = torch.tensor([[3.0, 3.0, 1.5]] * 8, device=cuda_device)
+    mp = make_problem(generate_mobile_base(dtype=torch.float32, device=cuda_device), sdf, s,
+                      torch.zeros_like(s), g, torch.zeros_like(g), se2)
+    trace.reset_counters()
+    traj_linearize(mp, init_traj_straight_line(mp.space, s, g, 15, 15.0))
+    c = trace.counters()
+    assert c["launches.assemble"] == 0 and c["launches.k3"] == 1
+
+
+@pytest.mark.cuda
+def test_assemble_plan_batch_matches_twin(cuda_device, monkeypatch):
+    """plan_batch on the WAM main path (chip_smoke.py's: the 300^3 desk
+    field packed, B = 2048 rejection-sampled endpoints, float32) through
+    the assembly kernel against the torch route on the same problems: the
+    same lanes converge, iterations are equal on at least 99% of the lanes,
+    the final errors agree within 3e-5 on at least 99% of the lanes, and
+    every lane's final error is the error of its trajectory (traj_error)
+    within 3e-5. Two float32 routes that differ in rounding alone leave a
+    few lanes' errors further apart (LM stops at a relative decrease of
+    1e-2, short of a minimum): the plain version against the torch route
+    on the CPU, 512 WAM desk plans, 99th percentile 2.4e-6, largest
+    4.9e-4."""
+    import chip_smoke
+    from gpmp2_tpu_torch.planner import (init_traj_straight_line, make_problem, plan_batch,
+                                         traj_error)
+
+    robot, sdf, setting, params, starts, goals = chip_smoke.main_path_inputs(cuda_device)
+    zero = torch.zeros_like(starts)
+    probs = make_problem(robot, sdf, starts, zero, goals, zero, setting)
+    init = init_traj_straight_line(probs.space, starts, goals, setting.total_step,
+                                   setting.total_time)
+    out = []
+    for on in (False, True):
+        _route(monkeypatch, on)
+        out.append(plan_batch(probs, init, params))
+    twin, kernel = out
+    assert torch.equal(twin.converged & ~twin.gave_up, kernel.converged & ~kernel.gave_up)
+    assert float((twin.iterations == kernel.iterations).float().mean()) >= 0.99
+
+    def gap(a, b):
+        return (a.double() - b.double()).abs() / b.double().abs()
+    assert float((gap(kernel.error, twin.error) <= 3e-5).float().mean()) >= 0.99
+    own = gap(kernel.error, traj_error(probs, kernel.traj))
+    assert float(own.max()) <= 3e-5, float(own.max())
